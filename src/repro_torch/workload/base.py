@@ -1,0 +1,287 @@
+"""The ``GenerativeWorkload`` protocol and its config-keyed registry, the
+port of ``repro.workload.base``.
+
+One API over the suite, as in the reference:
+
+  * ``init(seed, device)``     -- the pipeline module with seeded parameters
+  * ``load(state, device)``    -- the same module from a state dict (for
+    example one bridged from JAX by ``repro_torch.nn.from_jax_params``)
+  * ``prepare_request(...)``   -- modality-specific inputs -> ``GenRequest``
+  * ``generate(params, tokens, seed)`` -- the canonical stage composition:
+    ``init_stage_state`` -> the descriptor's stages via ``run_stage`` ->
+    ``stage_output``; there is no other pipeline driver
+  * ``cost_descriptor()``      -- the stage/step structure
+
+``params`` is the materialised pipeline module (what ``init``/``load``
+return), the counterpart of the reference's parameter tree.  Entry points
+run on ``device="cuda"`` unless the caller passes another device.
+
+Per-request randomness follows the reference's contract: a stage's noise
+for a request depends only on ``(seed, rid, stage_index)``
+(:func:`stage_generator`), never on the batch it rides in.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.nn import init_params, materialize
+from repro_torch.nn.module import _stable_hash
+
+WORKLOAD_ROUTES = ("lm", "pod")
+SLO_TIERS = ("interactive", "batch")
+
+
+def default_slo_tier(modality: str) -> str:
+    return "batch" if modality == "video" else "interactive"
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Per-request PRNG contract
+# ---------------------------------------------------------------------------
+
+
+def stage_generator(seed: int, rid: int, stage_index: int) -> torch.Generator:
+    """The per-request generator of one stage: seeded from ``(seed, rid,
+    stage_index)`` only, so batch composition never changes a sample."""
+    return torch.Generator().manual_seed(
+        _stable_hash(f"{int(seed)}/{int(rid)}/{int(stage_index)}"))
+
+
+def stage_noise(gens: list, shape: tuple, dtype, device) -> torch.Tensor:
+    """Stacked standard normals, one ``shape`` draw per request generator
+    (drawn on the CPU so a seed gives the same noise on every device)."""
+    return torch.stack([torch.randn(shape, generator=g, dtype=torch.float32)
+                        for g in gens]).to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Uniform request / cost views
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class GenRequest:
+    """One generation request, uniform across modalities."""
+
+    rid: int
+    modality: str  # "text" | "image" | "video"
+    route: str  # workload route: "lm" | "pod"
+    tokens: Any  # (S,) int32 prompt / text-conditioning ids
+    max_new_tokens: int = 0
+    denoise_steps: int = 0
+    slo_tier: str = "interactive"
+    deadline_ticks: int | None = None
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.route not in WORKLOAD_ROUTES:
+            raise ValueError(f"unknown workload route {self.route!r} "
+                             f"(expected one of {WORKLOAD_ROUTES})")
+        if self.slo_tier not in SLO_TIERS:
+            raise ValueError(f"unknown SLO tier {self.slo_tier!r} (expected one of {SLO_TIERS})")
+        if self.deadline_ticks is not None and self.deadline_ticks <= 0:
+            raise ValueError(f"deadline_ticks must be > 0 or None, got {self.deadline_ticks}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One pipeline stage: ``steps`` executions of its graph; ``seq_len`` a
+    representative attention sequence length.  (The per-tick ``demand``
+    profile comes with the serving slice.)"""
+
+    name: str
+    steps: int
+    seq_len: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CostDescriptor:
+    arch: str
+    route: str
+    stages: tuple
+
+    def __post_init__(self):
+        if self.route not in WORKLOAD_ROUTES:
+            raise ValueError(f"unknown workload route {self.route!r} for {self.arch!r}")
+
+    def iterative_steps(self) -> int:
+        return max((s.steps for s in self.stages), default=1)
+
+
+# ---------------------------------------------------------------------------
+# Batched stage state
+# ---------------------------------------------------------------------------
+
+
+def stack_states(states: list) -> dict:
+    """Per-request (unbatched) state dicts -> one batched state."""
+    return {k: stack_states([s[k] for s in states]) if isinstance(states[0][k], dict)
+            else torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def split_state(state: dict, n: int) -> list:
+    """Batched state -> n per-request (unbatched) views."""
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    return [pick(state, i) for i in range(n)]
+
+
+def resolve_stage_impls(stages, impl: str, stage_impl: dict | None) -> list[str]:
+    """Per-stage tier: ``stage_impl`` overrides ``impl`` by exact stage name,
+    then by the longest matching prefix; keys matching no stage raise."""
+    stage_impl = dict(stage_impl or {})
+    names = [s.name for s in stages]
+    unused = [k for k in stage_impl if not any(n == k or n.startswith(k) for n in names)]
+    if unused:
+        raise ValueError(f"stage_impl keys {sorted(unused)} match no stage (stages: {names})")
+    out = []
+    for name in names:
+        if name in stage_impl:
+            out.append(stage_impl[name])
+            continue
+        prefixes = [k for k in stage_impl if name.startswith(k)]
+        out.append(stage_impl[max(prefixes, key=len)] if prefixes else impl)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Protocol
+# ---------------------------------------------------------------------------
+
+
+class GenerativeWorkload:
+    route: str = "pod"
+    modality: str = "image"
+
+    def __init__(self, cfg):
+        if self.route not in WORKLOAD_ROUTES:
+            raise ValueError(f"{type(self).__name__}.route={self.route!r} is not a workload route")
+        self.cfg = cfg
+        self.model = self.build_model(cfg)  # parameters on "meta": structure only
+
+    def build_model(self, cfg) -> torch.nn.Module:
+        raise NotImplementedError
+
+    def init(self, seed: int, device="cuda") -> torch.nn.Module:
+        """The pipeline module with seeded parameters on ``device``."""
+        dev = resolve_device(device)
+        return self.load(init_params(self.model, seed), dev)
+
+    def load(self, state: dict, device="cuda") -> torch.nn.Module:
+        """The pipeline module with parameters from ``state`` on ``device``."""
+        return materialize(copy.deepcopy(self.model), state, resolve_device(device))
+
+    def reduced(self):
+        raise NotImplementedError
+
+    def cost_descriptor(self) -> CostDescriptor:
+        raise NotImplementedError
+
+    def prepare_request(self, rid: int, tokens, *, max_new_tokens: int = 0,
+                        slo_tier: str | None = None, deadline_ticks: int | None = None,
+                        **meta) -> GenRequest:
+        cd = self.cost_descriptor()
+        return GenRequest(
+            rid=rid, modality=self.modality, route=self.route,
+            tokens=np.asarray(tokens, np.int32), max_new_tokens=max_new_tokens,
+            denoise_steps=cd.iterative_steps() if self.route == "pod" else 0,
+            slo_tier=default_slo_tier(self.modality) if slo_tier is None else slo_tier,
+            deadline_ticks=deadline_ticks, meta=meta)
+
+    def generate(self, params, tokens, seed: int, *, impl: str = "auto", device="cuda",
+                 rids=None, stage_impl: dict | None = None,
+                 on_stage: Callable | None = None) -> torch.Tensor:
+        """Batched full-pipeline inference: (B, S) tokens -> stacked output."""
+        return torch.stack(self.generate_requests(
+            params, tokens, seed, impl=impl, device=device, rids=rids,
+            stage_impl=stage_impl, on_stage=on_stage))
+
+    @torch.inference_mode()
+    def generate_requests(self, params, tokens, seed: int, *, impl: str = "auto",
+                          device="cuda", rids=None, stage_impl: dict | None = None,
+                          on_stage: Callable | None = None) -> list:
+        """The :meth:`generate` driver, returning per-request outputs.
+        ``on_stage(name, wall_s, batch)`` is called after each stage, with
+        the wall time up to a device synchronisation."""
+        stages, impls = self._stage_plan(impl, stage_impl)
+        dev = resolve_device(device)
+        p_dev = next(params.parameters()).device
+        if p_dev.type != dev.type or dev.index not in (None, p_dev.index):
+            raise ValueError(f"params live on {p_dev}, generate asked for {dev}")
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        B = int(tokens.shape[0])
+        rids = list(range(B)) if rids is None else list(rids)
+        if len(rids) != B:
+            raise ValueError(f"got {len(rids)} rids for batch of {B}")
+        state = stack_states([self.init_stage_state(tokens[i], p_dev) for i in range(B)])
+        for idx, stage in enumerate(stages):
+            gens = [stage_generator(seed, rid, idx) for rid in rids]
+            t0 = time.perf_counter()
+            state = self.run_stage(params, stage, state, gens, impl=impls[idx])
+            if on_stage is not None:
+                if p_dev.type == "cuda":
+                    torch.cuda.synchronize(p_dev)
+                on_stage(stage.name, time.perf_counter() - t0, B)
+        return [self.stage_output(s) for s in split_state(state, B)]
+
+    def _stage_plan(self, impl: str, stage_impl: dict | None):
+        stages = self.cost_descriptor().stages
+        return stages, resolve_stage_impls(stages, impl, stage_impl)
+
+    def init_stage_state(self, tokens, device) -> dict:
+        return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
+
+    def run_stage(self, params, stage: Stage, state: dict, gens: list, *,
+                  impl: str = "auto") -> dict:
+        """Execute one ``stage`` over batched ``state``; ``gens`` holds one
+        :func:`stage_generator` per request."""
+        raise NotImplementedError
+
+    def stage_output(self, state: dict):
+        return state["out"]
+
+
+# ---------------------------------------------------------------------------
+# Registry (keyed by config type)
+# ---------------------------------------------------------------------------
+
+_WORKLOADS: dict[type, type] = {}
+
+
+def register_workload(*config_types) -> Callable:
+    def deco(cls):
+        for t in config_types:
+            _WORKLOADS[t] = cls
+        return cls
+
+    return deco
+
+
+def workload_for(cfg) -> GenerativeWorkload:
+    for t in type(cfg).__mro__:
+        if t in _WORKLOADS:
+            return _WORKLOADS[t](cfg)
+    raise TypeError(f"no GenerativeWorkload registered for {type(cfg).__name__}; "
+                    f"known: {sorted(t.__name__ for t in _WORKLOADS)}")
+
+
+def reduced_workload(cfg) -> GenerativeWorkload:
+    """Config -> workload over its reduced config (the CPU test path)."""
+    return workload_for(workload_for(cfg).reduced())
