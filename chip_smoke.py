@@ -2,29 +2,36 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Phases; each passes or raises, and nothing is caught:
+Two paths, each at full published width with random weights from a seed:
+Stable Diffusion text-to-image (2 requests, 512x512, 50 DDIM steps; three
+kernels) and Make-A-Video text-to-video (2 requests, 16 frames of
+64x64x4, 50 DDIM steps = 25 keyframe + 25 temporal; all five kernels).
+Phases 3-7 run for Stable Diffusion, then for Make-A-Video; each passes or
+raises, and nothing is caught:
 
   1. device   -- the card's name, count and power limit; capability (9, 0)
   2. build    -- compile the hand-written CUDA kernels from csrc/ (nvcc)
-  3. record   -- full-width Stable Diffusion weights from a seed; one
-                 generate pass (1 DDIM step) records every distinct call
-                 each kernel wrapper gets on the main path
+  3. record   -- full-width weights from a seed; one generate pass with one
+                 step per denoise stage records every distinct call each
+                 kernel wrapper gets on the path, by stage
   4. kernels  -- each recorded call replayed: the CUDA kernel against its
                  plain PyTorch version on the same inputs, in fp32 and bf16,
                  timed beside the plain version, one library call and the
-                 card's bound
-  5. unet     -- one full-width UNet step on the kernel tier against the
-                 torch tier, same weights and latent
-  6. main     -- the main path: ``workload_for(STABLE_DIFFUSION)``, 2 requests
-                 through ``prepare_request`` and ``generate`` at 512x512, with
-                 every kernel's launch count set to 0 just before and read just
-                 after
-  7. small    -- reduced SD generate on the card against the CPU plain path
+                 card's bound; weighted by its stage's steps
+  5. unet     -- one full-width UNet (VideoUNet) step on the kernel tier
+                 against the torch tier, same weights and latent
+  6. main     -- the path: ``workload_for(cfg)``, 2 requests through
+                 ``prepare_request`` and ``generate``, with every kernel's
+                 launch count set to 0 just before and read just after; the
+                 counts must equal the recorded plan
+  7. small    -- the reduced config's generate on the card against the CPU
+                 plain path
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and, last, ``{"ok": true, "device": {...}}``.  Per-call details go to
-``build/chip_smoke/``.  Without a CUDA device it exits non-zero and
-prints no result.
+It prints a ``{"kernels": [...]}`` line (each kernel's launches and times
+summed over both paths' main runs), the card's name and power limit, and,
+last, ``{"ok": true, "device": {...}}``.  Per-call details go to
+``build/chip_smoke/``.  Without a CUDA device it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ SEED = 0
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 F32 = dict(rtol=2e-5, atol=2e-5)  # the repo's kernel tolerance (tests/test_kernels.py)
+TEMPORAL_F32 = dict(rtol=3e-5, atol=3e-5)  # the repo's temporal attention tolerance
 STATS = dict(rtol=2e-4, atol=2e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 SOURCES = {
@@ -58,11 +66,29 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/flash_attention.py:118"),
     "groupnorm_silu": ("src/repro_torch/kernels/csrc/groupnorm_silu.cu",
                        "src/repro/kernels/groupnorm_silu/groupnorm_silu.py:84"),
+    "temporal_flash_attention": ("src/repro_torch/kernels/csrc/temporal_attention.cu",
+                                 "src/repro/kernels/flash_attention/flash_attention.py:213"),
+    "temporal_conv1d": ("src/repro_torch/kernels/csrc/temporal_conv1d.cu",
+                        "src/repro/kernels/conv2d/conv2d.py:314"),
 }
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+class phase:
+    """Logs the wall time of a block: ``with phase("sd", "kernels"): ...``."""
+
+    def __init__(self, path: str, name: str):
+        self.label = f"{path} {name}"
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"[phase] {self.label}: {time.perf_counter() - self.t0:.1f} s")
 
 
 def nvidia_smi() -> str:
@@ -139,12 +165,14 @@ class Recorder:
 
 
 def kernel_modules():
+    """Each kernel wrapper's module, by the wrapper's name."""
     from repro_torch.kernels.conv2d import conv2d
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.groupnorm_silu import groupnorm_silu
 
     return {"conv2d": conv2d, "flash_attention": flash_attention,
-            "groupnorm_silu": groupnorm_silu}
+            "groupnorm_silu": groupnorm_silu, "temporal_flash_attention": flash_attention,
+            "temporal_conv1d": conv2d}
 
 
 def record_main_path(wl, model, tokens, seed):
@@ -267,8 +295,64 @@ def groupnorm_case(args, kw):
         to_bf16=lambda: groupnorm_case([x.bfloat16(), scale, bias], kw))
 
 
+def temporal_attention_case(args, kw):
+    from repro_torch.kernels.flash_attention import flash_attention as kmod
+    from repro_torch.kernels.flash_attention import ref
+
+    q, k, v = args
+    B, nf, HW, H, D = q.shape
+    flops = 4.0 * B * HW * H * nf * nf * D
+    nbytes = 4 * _nbytes(q)  # q, k, v read once, out written once
+
+    def library():
+        # the conventional path: permute to (B*HW, H, F, D), SDPA, permute back
+        def perm(t):
+            return t.permute(0, 2, 3, 1, 4).reshape(B * HW, H, nf, D)
+
+        o = torch.nn.functional.scaled_dot_product_attention(perm(q), perm(k), perm(v),
+                                                             scale=kw["scale"])
+        return o.reshape(B, HW, H, nf, D).permute(0, 3, 1, 2, 4).contiguous()
+
+    return dict(
+        kernel=lambda: kmod.temporal_flash_attention(q, k, v, **kw),
+        plain=lambda: ref.temporal_attention_ref(q, k, v, **kw),
+        library=library, flops=flops, bytes=nbytes, tol=TEMPORAL_F32,
+        shape=f"q{tuple(q.shape)}",
+        to_bf16=lambda: temporal_attention_case([t.bfloat16() for t in args], kw))
+
+
+def temporal_conv_case(args, kw):
+    from repro_torch.kernels.conv2d import conv2d as kmod
+    from repro_torch.kernels.conv2d import ref
+
+    x, w, bias = args
+    B, nf, N, C = x.shape
+    K, _, C_out = w.shape
+    pad = K // 2
+    frames_read = sum(nf - abs(k - pad) for k in range(K))  # taps past the edge read zeros
+    flops = 2.0 * B * N * C * C_out * frames_read
+    nbytes = _nbytes(x, w, bias) + B * nf * N * C_out * x.element_size()
+    w_lib, b_lib = w.permute(2, 1, 0).contiguous(), bias.to(x.dtype)  # (C_out, C, K)
+
+    def library():
+        # the conventional path: permute to (B*N, C, F), conv1d, permute back
+        xl = x.permute(0, 2, 3, 1).reshape(B * N, C, nf)
+        y = torch.nn.functional.conv1d(xl, w_lib, b_lib, padding=pad)
+        return y.reshape(B, N, C_out, nf).permute(0, 3, 1, 2).contiguous()
+
+    widen = max(1.0, math.sqrt(K * C / 64))  # as for conv2d: R = K * C
+    return dict(
+        kernel=lambda: kmod.temporal_conv1d(x, w, bias), plain=lambda: ref.temporal_conv1d_ref(
+            x.reshape(B, nf, N, 1, C), w, bias).reshape(B, nf, N, C_out),
+        library=library, flops=flops, bytes=nbytes,
+        tol=dict(rtol=F32["rtol"] * widen, atol=F32["atol"] * widen),
+        shape=f"x{tuple(x.shape)} w{tuple(w.shape)}",
+        to_bf16=lambda: temporal_conv_case([x.bfloat16(), w.bfloat16(), bias], kw))
+
+
 CASES = {"conv2d": conv_case, "flash_attention": attention_case,
-         "groupnorm_silu": groupnorm_case}
+         "groupnorm_silu": groupnorm_case, "temporal_flash_attention": temporal_attention_case,
+         "temporal_conv1d": temporal_conv_case}
 
 
 def _compare(name, case, out, gold, tol):
@@ -280,13 +364,13 @@ def _compare(name, case, out, gold, tol):
     return max_err(out, gold)
 
 
-def check_kernels(rec, steps_main):
+def check_kernels(rec, stage_steps):
     """Replay every recorded call: kernel vs plain in fp32 and bf16, and
-    times weighted by the launches one main-path generate makes."""
+    times weighted by the launches one main-path generate makes (each
+    recorded stage ran one step; the main path runs ``stage_steps``)."""
     rows = []
     for call in rec.calls.values():
-        weight = sum(n * (steps_main if st == "denoise" else 1)
-                     for st, n in call["counts"].items())
+        weight = sum(n * stage_steps[st] for st, n in call["counts"].items())
         case = CASES[call["name"]](call["args"], call["kw"])
         label = f"{call['name']} {case['shape']}"
         err = _compare(label, case, case["kernel"](), case["plain"](), case["tol"])
@@ -313,35 +397,175 @@ def check_kernels(rec, steps_main):
     return rows
 
 
-def breakdown(rows, steps):
-    """Kernel time over one main-path generate by kernel and stage, the same
-    per UNet step, and conv2d per UNet step by its input's spatial size."""
-    by_stage, conv_hw = collections.defaultdict(collections.Counter), collections.Counter()
+def breakdown(rows, stage_steps):
+    """Kernel time over one main-path generate by kernel and stage; the same
+    per step of each multi-step stage; and conv2d per step by its input's
+    spatial size."""
+    by_stage = collections.defaultdict(collections.Counter)
+    conv_hw = collections.defaultdict(collections.Counter)
     for r in rows:
         for st, n in r["stages"].items():
-            t = r["ms"] * n * (steps if st == "denoise" else 1)
+            t = r["ms"] * n * stage_steps[st]
             by_stage[r["kernel"]][st] += t
-            if st == "denoise" and r["kernel"] == "conv2d":
-                conv_hw[r["shape"].split(", ")[1]] += t / steps
-    per_step = {k: v["denoise"] / steps for k, v in by_stage.items()}
+            if stage_steps[st] > 1 and r["kernel"] == "conv2d":
+                conv_hw[st][r["shape"].split(", ")[1]] += t / stage_steps[st]
+    per_step = {st: {k: v[st] / n for k, v in by_stage.items() if st in v}
+                for st, n in stage_steps.items() if n > 1}
     return dict(ms_by_kernel_and_stage={k: dict(v) for k, v in by_stage.items()},
-                unet_step_ms_by_kernel=per_step,
-                unet_step_conv_ms_by_input_hw=dict(conv_hw))
+                step_ms_by_stage_and_kernel=per_step,
+                conv_step_ms_by_stage_and_input_hw={k: dict(v) for k, v in conv_hw.items()})
 
 
-def summarize(rows, launches):
+def summarize(paths):
+    """The ``{"kernels": [...]}`` entries: launches and times summed over
+    the main runs of every path."""
     out = []
     for name, (source, replaces) in SOURCES.items():
-        rs = [r for r in rows if r["kernel"] == name]
+        rs = [r for p in paths.values() for r in p["rows"] if r["kernel"] == name]
         tot = lambda k: sum(r["launches"] * r[k] for r in rs)  # noqa: E731
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches.get(name, 0),
+            launches=sum(p["launches"].get(name, 0) for p in paths.values()),
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
             library_ms=tot("library_ms")))
     return out
+
+
+# ---------------------------------------------------------------------------
+# One path: phases 3-7
+# ---------------------------------------------------------------------------
+
+
+def denoiser(model, cfg):
+    """The path's denoising network and the shape of its (B=2) input."""
+    if hasattr(model, "vunet"):  # Make-A-Video: (B, F, H, W, C) video latents
+        hw = cfg.image_size // cfg.latent_down
+        return model.vunet, (2, cfg.frames, hw, hw, cfg.unet.in_channels)
+    return model.unet, (2, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
+
+
+def output_shape(cfg):
+    if hasattr(cfg, "frames"):
+        hw = cfg.image_size // cfg.latent_down
+        return (2, cfg.frames, hw, hw, cfg.unet.in_channels)
+    return (2, cfg.image_size, cfg.image_size, 3)
+
+
+def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> dict:
+    from repro_torch.kernels import build
+    from repro_torch.nn import init_params
+    from repro_torch.workload import reduced_workload, workload_for
+
+    wl = workload_for(cfg)
+    stage_steps = {st.name: st.steps for st in wl.cost_descriptor().stages}
+
+    # -- 3. record ------------------------------------------------------------
+    with phase(cfg.name, "init + record"):
+        t0 = time.perf_counter()
+        model = wl.init(SEED, "cuda")
+        torch.cuda.synchronize()
+        log(f"[init] full-width {cfg.name}: "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params in "
+            f"{time.perf_counter() - t0:.2f} s")
+        rng = torch.Generator().manual_seed(SEED)
+        tokens = [torch.randint(0, cfg.text.vocab, (cfg.text.max_len,), generator=rng).numpy()
+                  for _ in range(2)]
+        # one step per denoise stage (SD: 1; Make-A-Video: 1 keyframe + 1 temporal)
+        wl_rec = workload_for(dataclasses.replace(cfg, denoise_steps=record_steps))
+        rec = record_main_path(wl_rec, model, tokens, SEED)
+        log(f"[record] {cfg.name}: {len(rec.calls)} distinct kernel calls in stages "
+            f"{sorted({st for c in rec.calls.values() for st in c['counts']})}")
+
+    # -- 4. kernels vs plain ----------------------------------------------------
+    with phase(cfg.name, "kernels"):
+        rows = check_kernels(rec, stage_steps)
+        del rec
+        torch.cuda.empty_cache()
+        (OUT_DIR / f"kernel_calls_{cfg.name}.json").write_text(
+            json.dumps(dict(device=smi, rows=rows), indent=1))
+
+    # -- 5. one full-width UNet step, kernel tier vs torch tier --------------------
+    with phase(cfg.name, "unet step"):
+        net, x_shape = denoiser(model, cfg)
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        with torch.inference_mode():
+            ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
+            z = torch.randn(x_shape, generator=g, device="cuda")
+            t = torch.tensor([999.0, 499.0], device="cuda")
+            step = {}
+            for impl in ("kernel", "torch"):
+                step[impl] = net(z, t, ctx, impl=impl)
+                step[impl + "_ms"] = time_ms(lambda: net(z, t, ctx, impl=impl),
+                                             min_total_ms=0, max_reps=3)
+        unet_err = max_err(step["kernel"], step["torch"])
+        unet_ms = {impl: step[impl + "_ms"] for impl in ("kernel", "torch")}
+        scale = step["torch"].abs().max().item()
+        log(f"[unet] {cfg.name} full-width {type(net).__name__} step, input {x_shape}: kernel "
+            f"tier {step['kernel_ms']:.1f} ms, torch tier {step['torch_ms']:.1f} ms; max abs "
+            f"diff {unet_err:.3e} (max |out| {scale:.3e})")
+        # 60+ chained layers, each agreeing to the kernel tolerances above
+        if not (torch.isfinite(step["kernel"]).all() and unet_err <= 1e-3 * max(1.0, scale)):
+            raise AssertionError(f"{cfg.name}: kernel tier disagrees with the torch tier: "
+                                 f"{unet_err}")
+        del step, ctx, z
+
+    # -- 6. main path ---------------------------------------------------------
+    with phase(cfg.name, "main"):
+        reqs = [wl.prepare_request(rid, tokens[rid]) for rid in range(2)]
+        stage_s = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launches.clear()  # counts start at 0 just before the main path
+        t0 = time.perf_counter()
+        out = wl.generate(model, [r.tokens for r in reqs], SEED, rids=[r.rid for r in reqs],
+                          on_stage=lambda name, s, b: stage_s.__setitem__(name, s))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.launches)  # read just after
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = {st: stage_s[st] / n * 1e3 for st, n in stage_steps.items() if n > 1}
+        log(f"[{tag}] {cfg.name} generate 2 x {tuple(out.shape[1:])} in {wall:.2f} s; stages "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items()) + "; "
+            + ", ".join(f"{v:.1f} ms per {k} step" for k, v in step_ms.items())
+            + f"; peak memory {peak / 2**30:.2f} GiB; launches {launches}")
+        if tuple(out.shape) != output_shape(cfg):
+            raise AssertionError(f"{cfg.name}: output shape {tuple(out.shape)}")
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"{cfg.name}: non-finite output")
+        expected = {n: sum(r["launches"] for r in rows if r["kernel"] == n) for n in SOURCES}
+        expected = {n: c for n, c in expected.items() if c}
+        for name in kernels:
+            if launches.get(name, 0) == 0:
+                raise AssertionError(f"{name} was not launched on the {cfg.name} main path")
+        if launches != expected:
+            raise AssertionError(f"{cfg.name}: launches {launches} differ from the recorded "
+                                 f"plan {expected}")
+        split = breakdown(rows, stage_steps)
+        log(f"[breakdown] {cfg.name} kernel ms per step {split['step_ms_by_stage_and_kernel']}; "
+            f"conv2d by input size {split['conv_step_ms_by_stage_and_input_hw']}")
+        del out
+
+    # -- 7. small input: the card's kernel path against the CPU plain path --------
+    with phase(cfg.name, "small"):
+        rwl = reduced_workload(cfg)
+        state = init_params(rwl.model, SEED)
+        toks_small = [t[: rwl.cfg.text.max_len] % rwl.cfg.text.vocab for t in tokens]
+        small = {dev: rwl.generate(rwl.load(state, dev), toks_small, SEED, device=dev)
+                 for dev in ("cuda", "cpu")}
+        small_err = max_err(small["cuda"].cpu(), small["cpu"])
+        log(f"[small] reduced {rwl.cfg.name} generate, card vs CPU plain: max abs diff "
+            f"{small_err:.3e} (max |out| {small['cpu'].abs().max().item():.3e})")
+        assert_close(f"reduced {cfg.name} generate", small["cuda"].cpu(), small["cpu"],
+                     dict(rtol=1e-4, atol=1e-4))
+
+    del model
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, summary=dict(
+        denoise_steps=cfg.denoise_steps, stage_steps=stage_steps, generate_s=wall,
+        stage_s=stage_s, step_ms=step_ms, unet_tier_ms=unet_ms, peak_gib=peak / 2**30,
+        unet_kernel_vs_torch_err=unet_err, small_err=small_err, launches=launches, **split))
 
 
 # ---------------------------------------------------------------------------
@@ -362,10 +586,8 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"needs an sm_90 (Hopper) card, got capability {cap}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.suite import STABLE_DIFFUSION
+    from repro_torch.configs.suite import MAKE_A_VIDEO, STABLE_DIFFUSION
     from repro_torch.kernels import build
-    from repro_torch.nn import init_params
-    from repro_torch.workload import reduced_workload, workload_for
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     torch.backends.cudnn.allow_tf32 = False  # plain and library sides in full fp32
@@ -374,103 +596,22 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
     build.library()
-    log(f"[build] {time.perf_counter() - t0:.2f} s ({build.BUILD_ROOT / build.source_hash()})")
+    log(f"[build] {len(SOURCES)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"({build.BUILD_ROOT / build.source_hash()})")
     (OUT_DIR / "nvcc.log").write_text(build.nvcc_log())
 
-    # -- 3. record ------------------------------------------------------------
-    cfg = STABLE_DIFFUSION
-    t0 = time.perf_counter()
-    model = workload_for(cfg).init(SEED, "cuda")
-    torch.cuda.synchronize()
-    log(f"[init] full-width {cfg.name}: "
-        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params in "
-        f"{time.perf_counter() - t0:.2f} s")
-    rng = torch.Generator().manual_seed(SEED)
-    tokens = [torch.randint(0, cfg.text.vocab, (cfg.text.max_len,), generator=rng).numpy()
-              for _ in range(2)]
-    wl1 = workload_for(dataclasses.replace(cfg, denoise_steps=1))
-    t0 = time.perf_counter()
-    rec = record_main_path(wl1, model, tokens, SEED)
-    log(f"[record] {len(rec.calls)} distinct kernel calls in {time.perf_counter() - t0:.2f} s")
-
-    # -- 4. kernels vs plain ----------------------------------------------------
-    steps = cfg.denoise_steps
-    rows = check_kernels(rec, steps)
-    del rec
-    torch.cuda.empty_cache()
-    (OUT_DIR / "kernel_calls.json").write_text(json.dumps(dict(device=smi, rows=rows), indent=1))
-
-    # -- 5. one full-width UNet step, kernel tier vs torch tier --------------------
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    with torch.inference_mode():
-        ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
-        z = torch.randn((2, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels),
-                        generator=g, device="cuda")
-        t = torch.tensor([999.0, 499.0], device="cuda")
-        step = {}
-        for impl in ("kernel", "torch"):
-            step[impl] = model.unet(z, t, ctx, impl=impl)
-            step[impl + "_ms"] = time_ms(lambda: model.unet(z, t, ctx, impl=impl),
-                                         min_total_ms=0, max_reps=3)
-    unet_err = max_err(step["kernel"], step["torch"])
-    unet_ms = {impl: step[impl + "_ms"] for impl in ("kernel", "torch")}
-    scale = step["torch"].abs().max().item()
-    log(f"[unet] full-width step B=2: kernel tier {step['kernel_ms']:.1f} ms, torch tier "
-        f"{step['torch_ms']:.1f} ms; max abs diff {unet_err:.3e} (max |out| {scale:.3e})")
-    # 60+ chained layers, each agreeing to the kernel tolerances above
-    if not (torch.isfinite(step["kernel"]).all() and unet_err <= 1e-3 * max(1.0, scale)):
-        raise AssertionError(f"UNet kernel tier disagrees with the torch tier: {unet_err}")
-    del step, ctx, z
-
-    # -- 6. main path ---------------------------------------------------------
-    wl = workload_for(cfg)
-    reqs = [wl.prepare_request(rid, tokens[rid]) for rid in range(2)]
-    stage_s = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.launches.clear()  # counts start at 0 just before the main path
-    t0 = time.perf_counter()
-    img = wl.generate(model, [r.tokens for r in reqs], SEED, rids=[r.rid for r in reqs],
-                      on_stage=lambda name, s, b: stage_s.__setitem__(name, s))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(build.launches)  # read just after
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[main] generate 2 x {tuple(img.shape[1:])} in {wall:.2f} s; stages "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items())
-        + f"; {stage_s['denoise'] / steps * 1e3:.1f} ms per UNet step; "
-        f"peak memory {peak / 2**30:.2f} GiB; launches {launches}")
-    if tuple(img.shape) != (2, cfg.image_size, cfg.image_size, 3):
-        raise AssertionError(f"output shape {tuple(img.shape)}")
-    if not torch.isfinite(img).all():
-        raise AssertionError("non-finite output")
-    expected = {n: sum(r["launches"] for r in rows if r["kernel"] == n) for n in SOURCES}
-    for name in SOURCES:
-        if launches.get(name, 0) == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-    if launches != expected:
-        raise AssertionError(f"launches {launches} differ from the recorded plan {expected}")
-    kernels = summarize(rows, launches)
-    split = breakdown(rows, steps)
-    log(f"[breakdown] kernel ms per UNet step {split['unet_step_ms_by_kernel']}; conv2d by "
-        f"input size {split['unet_step_conv_ms_by_input_hw']}")
-
-    # -- 7. small input: the card's kernel path against the CPU plain path --------
-    rwl = reduced_workload(cfg)
-    state = init_params(rwl.model, SEED)
-    toks_small = [t[: rwl.cfg.text.max_len] % rwl.cfg.text.vocab for t in tokens]
-    small = {dev: rwl.generate(rwl.load(state, dev), toks_small, SEED, device=dev)
-             for dev in ("cuda", "cpu")}
-    small_err = max_err(small["cuda"].cpu(), small["cpu"])
-    log(f"[small] reduced {rwl.cfg.name} generate, card vs CPU plain: max abs diff "
-        f"{small_err:.3e}")
-    assert_close("reduced generate", small["cuda"].cpu(), small["cpu"], dict(rtol=1e-4, atol=1e-4))
-
-    summary = dict(device=smi, kind=kind, denoise_steps=steps, generate_s=wall,
-                   stage_s=stage_s, unet_step_ms=stage_s["denoise"] / steps * 1e3,
-                   unet_tier_ms=unet_ms, peak_gib=peak / 2**30,
-                   unet_kernel_vs_torch_err=unet_err, small_err=small_err, kernels=kernels,
-                   **split)
+    # -- 3-7, per path ----------------------------------------------------------
+    t_all = time.perf_counter()
+    paths = {
+        STABLE_DIFFUSION.name: run_path(
+            STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi,
+            kernels=("conv2d", "flash_attention", "groupnorm_silu")),
+        MAKE_A_VIDEO.name: run_path(
+            MAKE_A_VIDEO, tag="main-ttv", record_steps=2, smi=smi, kernels=tuple(SOURCES)),
+    }
+    kernels = summarize(paths)
+    summary = dict(device=smi, kind=kind, paths_s=time.perf_counter() - t_all,
+                   paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,6 +5,7 @@ from __future__ import annotations
 from repro_torch.configs import register
 from repro_torch.models.diffusion import DiffusionConfig
 from repro_torch.models.text_encoder import TextEncoderConfig
+from repro_torch.models.ttv import TTVConfig
 from repro_torch.models.unet import UNetConfig
 from repro_torch.models.vae import DecoderConfig
 
@@ -28,3 +29,23 @@ STABLE_DIFFUSION = DiffusionConfig(
     source="[arXiv:2112.10752 / paper Table I]",
 )
 register(STABLE_DIFFUSION)
+
+# Make-A-Video (diffusion TTV: SD-like UNet + temporal attn/conv, 16 frames)
+MAKE_A_VIDEO = TTVConfig(
+    name="make-a-video",
+    unet=UNetConfig(
+        in_channels=4, out_channels=4, model_channels=320,
+        # attention at ds 32/16/8 (levels 1-3), Imagen-style 64px decoder --
+        # the 64x64 level is conv-only (memory), per the MAV/DALLE2 lineage
+        channel_mult=(1, 2, 4, 4), num_res_blocks=2, attn_levels=(1, 2, 3),
+        cross_attn=True, context_dim=768, head_channels=64, n_heads=8,
+    ),
+    text=TextEncoderConfig(vocab=49408, max_len=77, n_layers=12, d_model=768,
+                           n_heads=12, d_ff=3072),
+    frames=16,
+    image_size=64,
+    denoise_steps=50,
+    temporal_head_channels=64,
+    source="[arXiv:2209.14792]",
+)
+register(MAKE_A_VIDEO)

@@ -1,8 +1,11 @@
-"""Wrapper of the fused implicit-GEMM Conv2D CUDA kernel (``csrc/conv2d.cu``).
+"""Wrappers of the conv CUDA kernels (``csrc/conv2d.cu``,
+``csrc/temporal_conv1d.cu``).
 
-The port of ``repro.kernels.conv2d.conv2d.conv2d_pallas``.  A CUDA tensor
-launches the hand-written kernel; a CPU tensor takes the plain version
-(``ref.conv2d_ref``), which is how the CPU tests reach this function.
+``conv2d`` is the port of ``repro.kernels.conv2d.conv2d.conv2d_pallas``;
+``temporal_conv1d`` the port of ``temporal_conv1d_pallas`` there.  A CUDA
+tensor launches the hand-written kernel; a CPU tensor takes the plain
+version (``ref.conv2d_ref`` / ``ref.temporal_conv1d_ref``), which is how
+the CPU tests reach these functions.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 10 + [_I] * 12 + [_P]
 
+_TCONV_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
+
 BLOCK_M = 64  # output pixels per block (csrc/conv2d.cu BM)
+MAX_TAPS = 9  # csrc/temporal_conv1d.cu kMaxTaps
 
 
 def _f32(t: torch.Tensor | None, shape: tuple) -> torch.Tensor | None:
@@ -90,3 +96,38 @@ def conv2d(
     build.check_error(err, "conv2d")
     build.launches["conv2d"] += 1
     return (out, stats) if emit_stats else out
+
+
+def temporal_conv1d(
+    x: torch.Tensor,  # (B, F, N, C): conv over the frame axis F
+    w: torch.Tensor,  # (K, C, C_out), K odd
+    bias: torch.Tensor,  # (C_out,)
+) -> torch.Tensor:
+    """``y[b, f, n] = bias + sum_k x[b, f + k - K//2, n] @ w[k]``, frames
+    outside [0, F) zero; see ``ref.temporal_conv1d_ref``."""
+    if x.device.type == "cpu":
+        B, F, N, C = x.shape
+        y = ref.temporal_conv1d_ref(x.reshape(B, F, N, 1, C), w, bias)
+        return y.reshape(B, F, N, w.shape[-1])
+    dev = build.check_device(x, w, bias)
+    if x.dtype not in build.DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"temporal conv kernel takes fp32/bf16 x and w of one dtype, got "
+                        f"{x.dtype}/{w.dtype}")
+    if x.dim() != 4 or w.dim() != 3:
+        raise ValueError(f"expected x (B,F,N,C) and w (K,C,C_out), got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    B, F, N, C = x.shape
+    K, w_c, C_out = w.shape
+    if w_c != C or K % 2 == 0 or K > MAX_TAPS:
+        raise ValueError(f"unsupported temporal conv: w {tuple(w.shape)} for C={C} "
+                         f"(odd K <= {MAX_TAPS})")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("temporal conv kernel takes contiguous x and w")
+    bias = _f32(bias, (C_out,))
+    out = torch.empty((B, F, N, C_out), dtype=x.dtype, device=dev)
+    fn = build.function("rt_temporal_conv1d", _TCONV_ARGTYPES)
+    err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, F, N, C, C_out,
+             K, build.DTYPE_CODES[x.dtype], build.stream(dev))
+    build.check_error(err, "temporal_conv1d")
+    build.launches["temporal_conv1d"] += 1
+    return out

@@ -4,6 +4,11 @@
 (``repro_torch.kernels.tiers``): ``kernel`` runs the CUDA kernel (its plain
 version for a CPU tensor), ``torch`` the composite ``ref.conv2d_ref``.
 
+``temporal_conv1d(...)`` is the call-site API of the temporal conv layers:
+the ``kernel`` tier runs the temporal CUDA kernel on the (B, F, H*W, C)
+view of the video tensor, tiled in place; the ``torch`` tier the
+conventional permute -> conv1d -> permute of ``ref.temporal_conv1d_ref``.
+
 ``groupnorm_affine`` and ``affine_from_stats`` collapse a GroupNorm that
 feeds a conv into the per-(batch, channel) affine the fused kernel applies
 to its input; they are plain PyTorch outside any kernel, as in the
@@ -19,7 +24,7 @@ from repro_torch.kernels.conv2d import ref as _ref
 from repro_torch.kernels.tiers import is_fused, resolve_model_impl
 
 __all__ = ["affine_from_stats", "conv2d", "groupnorm_affine", "is_fused",
-           "resolve_model_impl"]
+           "resolve_model_impl", "temporal_conv1d"]
 
 
 def _affine_from_moments(mean, var, scale, bias, *, cpg: int, eps: float):
@@ -72,3 +77,17 @@ def conv2d(
     fn = _kernel.conv2d if resolve_model_impl(impl) == "kernel" else _ref.conv2d_ref
     return fn(x, w, stride=stride, gn_a=gn_a, gn_b=gn_b, gn_silu=gn_silu, bias=bias,
               temb=temb, silu=silu, residual=residual, emit_stats=emit_stats)
+
+
+def temporal_conv1d(
+    x: torch.Tensor,  # (B, F, H, W, C): conv over the frame axis
+    w: torch.Tensor,  # (K, C, C_out)
+    bias: torch.Tensor,  # (C_out,)
+    *,
+    impl: str = "auto",
+) -> torch.Tensor:
+    if resolve_model_impl(impl) == "kernel":
+        B, F, H, W, C = x.shape
+        y = _kernel.temporal_conv1d(x.reshape(B, F, H * W, C), w, bias)
+        return y.reshape(B, F, H, W, w.shape[-1])
+    return _ref.temporal_conv1d_ref(x, w, bias)

@@ -12,6 +12,9 @@ Semantics of one fused call (all pieces optional), as in
 
 Layouts: x (B, H, W, C_in), w (K, K, C_in, C_out) HWIO, out NHWC.
 Everything is computed in fp32 whatever the input dtype, then cast back.
+
+``temporal_conv1d_ref`` is the oracle of the temporal conv kernel: a K-tap
+zero-padded conv over the frame axis of (B, F, H, W, C) video tensors.
 """
 
 from __future__ import annotations
@@ -55,3 +58,22 @@ def conv2d_ref(
         stats = torch.stack([y.sum((1, 2)), (y * y).sum((1, 2))], dim=1)  # (B, 2, C_out)
         return out, stats
     return out
+
+
+def temporal_conv1d_ref(
+    x: torch.Tensor,  # (B, F, H, W, C): conv over the frame axis F
+    w: torch.Tensor,  # (K, C, C_out)
+    bias: torch.Tensor | None = None,  # (C_out,)
+) -> torch.Tensor:
+    """The conventional materialized-permute version, as in
+    ``repro.kernels.conv2d.ref``: (B,F,H,W,C) -> (B*H*W, C, F) -> conv1d
+    (pad K//2, fp32) -> permute back."""
+    B, nf, H, W, C = x.shape
+    K, _, C_out = w.shape
+    xf = x.float().permute(0, 2, 3, 4, 1).reshape(B * H * W, C, nf)
+    wf = w.to(x.dtype).float().permute(2, 1, 0)  # (C_out, C, K)
+    y = F.conv1d(xf, wf, padding=K // 2)  # (BHW, C_out, F)
+    if bias is not None:
+        y = y + bias.float()[:, None]
+    y = y.reshape(B, H, W, C_out, nf).permute(0, 4, 1, 2, 3)
+    return y.to(x.dtype).contiguous()

@@ -1,10 +1,15 @@
-"""Wrapper of the flash-attention CUDA kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the attention CUDA kernels (``csrc/flash_attention.cu``,
+``csrc/temporal_attention.cu``).
 
-The port of ``repro.kernels.flash_attention.flash_attention.flash_attention_bhsd``.
+``flash_attention`` is the port of
+``repro.kernels.flash_attention.flash_attention.flash_attention_bhsd``.
 It reads ``(B, S, H, D)`` operands through their strides, so the TPU
 wrapper's transpose to ``(B, H, S, D)`` and padding to block multiples have
-no counterpart here.  A CUDA tensor launches the hand-written kernel; a CPU
-tensor takes the plain version (``ref.attention_ref``).
+no counterpart here.  ``temporal_flash_attention`` is the port of
+``temporal_flash_attention`` there: attention across the frames of
+``(B, F, HW, H, D)`` operands, read and written in that layout.  A CUDA
+tensor launches the hand-written kernel; a CPU tensor takes the plain
+version (``ref.attention_ref`` / ``ref.temporal_attention_ref``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_P, ctypes.c_float] + [_I] * 4 + [_P]
 
+_TEMPORAL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P, ctypes.c_float] + [_I] * 3 + [_P]
+
 MAX_HEAD_DIM = 256
+MAX_FRAMES = 32  # csrc/temporal_attention.cu kMaxFrames
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
 
 def flash_attention(
@@ -61,4 +70,54 @@ def flash_attention(
              build.DTYPE_CODES[q.dtype], build.stream(dev))
     build.check_error(err, "flash_attention")
     build.launches["flash_attention"] += 1
+    return out
+
+
+def temporal_flash_attention(
+    q: torch.Tensor,  # (B, F, HW, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    frames_valid: int | None = None,
+) -> torch.Tensor:
+    """Attention across the frame axis F for every (batch, spatial position,
+    head); key frames at or past ``frames_valid`` (default F) are masked."""
+    F = q.shape[1]
+    fv = F if frames_valid is None else int(frames_valid)
+    if not 1 <= fv <= F:
+        raise ValueError(f"frames_valid must be in [1, {F}], got {frames_valid}")
+    if q.device.type == "cpu":
+        return ref.temporal_attention_ref(q, k, v, scale=scale, frames_valid=fv)
+    dev = build.check_device(q, k, v)
+    if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"temporal attention takes fp32/bf16 q, k, v of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"expected q, k, v of one shape (B, F, HW, H, D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, F, HW, H, D = q.shape
+    if F > MAX_FRAMES or D > MAX_HEAD_DIM:
+        raise ValueError(f"F={F}, D={D}: the kernel takes at most {MAX_FRAMES} frames and "
+                         f"head dim {MAX_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("temporal attention needs a unit stride on the head dim")
+    smem = build.function("rt_temporal_attention_smem", [_I, _I])(F, D)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"F={F}, D={D} needs {smem} bytes of shared memory, more than "
+                         f"{SMEM_LIMIT}")
+    out = torch.empty((B, F, HW, H, D), dtype=q.dtype, device=dev)
+    tensors = (q, k, v, out)
+    strides = [s for t in tensors for s in t.stride()[:4]]
+    # 16-byte fp32 / 8-byte bf16 row loads need aligned rows
+    align = 4 * q.element_size()
+    vec = D % 4 == 0 and all(s % 4 == 0 for s in strides) and all(
+        t.data_ptr() % align == 0 for t in tensors)
+    fn = build.function("rt_temporal_attention", _TEMPORAL_ARGTYPES)
+    st = (ctypes.c_longlong * 16)(*strides)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, HW, H, D,
+             ctypes.addressof(st), float(scale), fv, int(vec), build.DTYPE_CODES[q.dtype],
+             build.stream(dev))
+    build.check_error(err, "temporal_flash_attention")
+    build.launches["temporal_flash_attention"] += 1
     return out

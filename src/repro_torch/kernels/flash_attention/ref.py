@@ -47,3 +47,28 @@ def attention_ref(
         s = s + torch.where(ok, 0.0, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def temporal_attention_ref(
+    x_q: torch.Tensor,
+    x_k: torch.Tensor,
+    x_v: torch.Tensor,
+    *,
+    scale: float | None = None,
+    frames_valid: int | None = None,
+) -> torch.Tensor:
+    """Attention across frames, as ``repro.kernels.flash_attention.ref``'s
+    ``temporal_attention_ref``: inputs in the spatial layout (B, F, HW, H, D)
+    are permuted to (B*HW, F, H, D), attended over F and permuted back.
+
+    ``frames_valid`` (default F) masks key frames at or past it, as the
+    TPU kernel does with -1e30: their weights are exactly 0 in fp32, so the
+    keys are sliced away instead."""
+    B, F, HW, H, D = x_q.shape
+    fv = F if frames_valid is None else frames_valid
+
+    def perm(t):
+        return t.permute(0, 2, 1, 3, 4).reshape(B * HW, t.shape[1], H, D)
+
+    out = attention_ref(perm(x_q), perm(x_k[:, :fv]), perm(x_v[:, :fv]), scale=scale)
+    return out.reshape(B, HW, F, H, D).permute(0, 2, 1, 3, 4)

@@ -97,8 +97,9 @@ class DiffusionPipeline(Module):
         return self.text(tokens, impl=impl)
 
     def denoise_loop(self, unet: UNet2D, z, ctx, steps: int, *, impl="auto"):
-        """The ``steps``-long DDIM loop (the reference's sub-range arguments
-        come with the TTV slice that resumes a partial schedule)."""
+        """The ``steps``-long DDIM loop.  A partial schedule (the TTV
+        sampler's keyframe and temporal stages) runs through ``ddim_range``
+        directly, which resumes at any step index."""
 
         def unet_eps(z, t):
             tb = torch.full((z.shape[0],), float(t), dtype=torch.float32, device=z.device)

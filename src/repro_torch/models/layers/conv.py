@@ -1,9 +1,10 @@
-"""Conv2D layer and the fused GroupNorm producer (``repro.models.layers.conv``).
+"""Conv layers and the fused GroupNorm producer (``repro.models.layers.conv``).
 
 ``Conv2D`` dispatches through ``kernels.conv2d.ops.conv2d`` and exposes its
 fused epilogues (bias / time-embedding add / SiLU / residual add), the fused
 GroupNorm(+SiLU) producer and next-GroupNorm stats emission.  Layout NHWC,
-kernel HWIO.
+kernel HWIO.  ``TemporalConv1D`` convolves over the frame axis of
+(B, F, H, W, C) video tensors through ``kernels.conv2d.ops.temporal_conv1d``.
 """
 
 from __future__ import annotations
@@ -37,3 +38,17 @@ class Conv2D(Module):
             x, self.kernel.to(x.dtype), stride=self.stride, bias=self.bias, gn_affine=gn_affine,
             gn_silu=gn_silu, temb=temb, silu=silu, residual=residual,
             emit_stats=emit_stats, impl=impl)
+
+
+class TemporalConv1D(Module):
+    """Conv over the frame axis of (B, F, H, W, C) video tensors, the
+    temporal convolutions TTV models interleave with temporal attention;
+    kernel (K, C, C), zero-padded to keep F."""
+
+    def __init__(self, channels: int, kernel: int = 3, dtype=torch.float32):
+        super().__init__()
+        self.param("kernel", (kernel, channels, channels), scaled_init((0, 1)), dtype)
+        self.param("bias", (channels,), zeros_init, dtype)
+
+    def forward(self, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        return conv_ops.temporal_conv1d(x, self.kernel.to(x.dtype), self.bias, impl=impl)

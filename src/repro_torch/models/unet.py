@@ -228,8 +228,12 @@ class UNet2D(Module):
             return Upsample(c_out, cfg.dtype)
         raise ValueError(kind)
 
-    def forward(self, x, t, context=None, *, impl="auto"):
-        """x: (B, H, W, C_in); t: (B,) timesteps; context: (B, L, ctx_dim)."""
+    def forward(self, x, t, context=None, *, impl="auto", temporal_hook=None, frames: int = 1):
+        """x: (B, H, W, C_in); t: (B,) timesteps; context: (B, L, ctx_dim).
+
+        ``temporal_hook(name, h, frames)`` runs right after each spatial
+        attention block (the VideoUNet's temporal layers), inside the block
+        step, so the skip an attention block refines is the hooked output."""
         cfg = self.cfg
         temb = sinusoidal_embedding(t, cfg.model_channels)
         temb = self.temb2(F.silu(self.temb1(temb)))
@@ -239,7 +243,8 @@ class UNet2D(Module):
             if kind == "res":
                 return mod(h, temb, impl=impl)
             if kind == "attn":
-                return mod(h, context, impl=impl)
+                h = mod(h, context, impl=impl)
+                return h if temporal_hook is None else temporal_hook(name, h, frames)
             return mod(h, impl=impl)
 
         h = self.conv_in(x, impl=impl)

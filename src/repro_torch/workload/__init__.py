@@ -13,9 +13,11 @@ from repro_torch.workload.base import (
     workload_for,
 )
 from repro_torch.workload.diffusion import DiffusionWorkload
+from repro_torch.workload.ttv import MakeAVideoWorkload
 
 __all__ = [
-    "CostDescriptor", "DiffusionWorkload", "GenRequest", "GenerativeWorkload", "Stage",
+    "CostDescriptor", "DiffusionWorkload", "GenRequest", "GenerativeWorkload",
+    "MakeAVideoWorkload", "Stage",
     "reduced_workload", "register_workload", "stage_generator", "stage_noise",
     "workload_for",
 ]

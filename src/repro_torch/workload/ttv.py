@@ -1,0 +1,99 @@
+"""Text-to-video workload (Make-A-Video), the port of ``repro.workload.ttv``.
+
+A factorized sampler over one DDIM schedule: ``keyframe_denoise`` runs the
+first half spatial-only (frames folded into the batch, no temporal layers),
+``temporal_denoise`` resumes the schedule with the VideoUNet.  The per-tick
+``demand`` profile comes with the serving slice; Phenaki with the
+transformer slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.diffusion import ddim_range
+from repro_torch.models.ttv import MakeAVideoPipeline, TTVConfig
+from repro_torch.workload.base import (
+    CostDescriptor,
+    GenerativeWorkload,
+    Stage,
+    register_workload,
+    stage_noise,
+)
+from repro_torch.workload.diffusion import REDUCED_TEXT
+
+
+@register_workload(TTVConfig)
+class MakeAVideoWorkload(GenerativeWorkload):
+    route = "pod"
+    modality = "video"
+
+    def build_model(self, cfg: TTVConfig) -> MakeAVideoPipeline:
+        return MakeAVideoPipeline(cfg)
+
+    def reduced(self) -> TTVConfig:
+        cfg = self.cfg
+        return dataclasses.replace(
+            cfg, name=cfg.name + "-reduced",
+            unet=dataclasses.replace(
+                cfg.unet, model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                attn_levels=(0,), context_dim=64, head_channels=8, groups=8),
+            text=REDUCED_TEXT, frames=4, image_size=16, denoise_steps=2,
+            temporal_head_channels=8)
+
+    def _denoise_split(self) -> tuple[int, int]:
+        """(keyframe, temporal) step counts: the first half of the schedule
+        spatial-only, the rest with the temporal layers.  A 1-step schedule
+        runs as one temporal stage."""
+        steps = self.cfg.denoise_steps
+        if steps < 2:
+            return 0, steps
+        kf = steps // 2
+        return kf, steps - kf
+
+    def cost_descriptor(self) -> CostDescriptor:
+        cfg = self.cfg
+        hw = cfg.image_size // cfg.latent_down
+        kf, tp = self._denoise_split()
+        stages = [Stage("text_encoder", 1, cfg.text.max_len)]
+        if kf:
+            stages.append(Stage("keyframe_denoise", kf, cfg.frames * hw * hw))
+        stages.append(Stage("temporal_denoise", tp, cfg.frames * hw * hw))
+        return CostDescriptor(arch=cfg.name, route=self.route, stages=tuple(stages))
+
+    def run_stage(self, params, stage, state, gens, *, impl="auto"):
+        cfg = self.cfg
+        if stage.name == "text_encoder":
+            return {"ctx": params.encode_text(state["tokens"], impl=impl)}
+        kf, tp = self._denoise_split()
+        total = kf + tp
+        ctx = state["ctx"]
+        hw = cfg.image_size // cfg.latent_down
+
+        def initial_noise():
+            # per-request noise from the (seed, rid, stage) contract
+            return stage_noise(gens, (cfg.frames, hw, hw, cfg.unet.in_channels), cfg.dtype,
+                               ctx.device)
+
+        if stage.name == "keyframe_denoise":
+            ctx_frames = ctx.repeat_interleave(cfg.frames, dim=0)
+
+            def spatial_eps(z, t):
+                # frames folded into the batch; temporal layers inactive
+                Bz, F, H, W, C = z.shape
+                tb = torch.full((Bz * F,), float(t), dtype=torch.float32, device=z.device)
+                eps = params.vunet.unet(z.reshape(Bz * F, H, W, C), tb, ctx_frames, impl=impl)
+                return eps.reshape(Bz, F, H, W, C)
+
+            return {"ctx": ctx, "z": ddim_range(spatial_eps, initial_noise(), total, 0, kf)}
+        if stage.name == "temporal_denoise":
+            z = state["z"] if kf else initial_noise()
+
+            def video_eps(z, t):
+                tb = torch.full((z.shape[0],), float(t), dtype=torch.float32, device=z.device)
+                return params.vunet(z, tb, ctx, impl=impl)
+
+            return {"out": ddim_range(video_eps, z, total, kf, total)}
+        raise ValueError(f"unknown TTV stage {stage.name!r}")

@@ -11,7 +11,8 @@ only PyTorch is installed:
 here are shared with ``tests/test_torch_kernels.py``, which holds the same
 plain versions against the JAX package on the CPU.  Tolerances are the
 repo's own (``tests/test_kernels.py``): 2e-5 in fp32, 2e-4 for emitted
-stats, 2e-2 in bf16.
+stats, 2e-2 in bf16; 3e-5 for temporal attention (its sweep's own,
+``tests/test_kernels.py``).
 """
 
 import numpy as np
@@ -24,6 +25,7 @@ from repro_torch.kernels.flash_attention import ref as t_fa_ref
 from repro_torch.kernels.groupnorm_silu import ref as t_gn_ref
 
 F32 = dict(rtol=2e-5, atol=2e-5)
+TEMPORAL_F32 = dict(rtol=3e-5, atol=3e-5)
 STATS = dict(rtol=2e-4, atol=2e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)
 
@@ -107,6 +109,29 @@ def _attn_inputs(case, seed=0):
 
 
 # ---------------------------------------------------------------------------
+# temporal attention and temporal conv (the Make-A-Video slice)
+# ---------------------------------------------------------------------------
+
+# (F, HW) of the reference's sweep (tests/test_kernels.py), q (2, F, HW, 4, 32)
+TATTN_CASES = [(4, 64), (8, 100), (16, 32)]
+# (F, H, W, C) of the reference's sweep; w (3, C, C)
+TCONV_CASES = [(4, 8, 8, 8), (5, 7, 9, 6), (16, 4, 4, 12)]
+
+
+def _tattn_inputs(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape, np.float32) for _ in range(3))
+
+
+def _tconv_inputs(F, H, W, C, C_out=None, K=3, seed=0):
+    rng = np.random.default_rng(seed)
+    C_out = C if C_out is None else C_out
+    return (rng.standard_normal((2, F, H, W, C), np.float32),
+            (0.2 * rng.standard_normal((K, C, C_out))).astype(np.float32),
+            (0.1 * rng.standard_normal(C_out)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version (skips elsewhere)
 # ---------------------------------------------------------------------------
 
@@ -182,3 +207,53 @@ def test_groupnorm_cuda_matches_plain(h100, shape, silu, dtype):
     out = kernel.groupnorm_silu(xt, s, b, groups=G, silu=silu)
     gold = t_gn_ref.groupnorm_silu_ref(xt, s, b, groups=G, silu=silu)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,frames_valid", [
+    ((2, 4, 64, 4, 32), None), ((2, 8, 100, 4, 32), None), ((2, 16, 32, 4, 32), None),
+    ((2, 16, 37, 3, 64), None),   # F=16, D=64 as at full width; ragged spatial tail
+    ((1, 16, 50, 2, 64), 11),     # frames_valid < F
+    ((1, 5, 13, 2, 6), 3),        # odd F and a head dim that is no multiple of 4
+    ((1, 32, 9, 1, 64), None),    # the frame limit
+], ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else f"fv{c}")
+def test_temporal_attention_cuda_matches_plain(h100, shape, frames_valid, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_tattn_inputs(shape, seed=9))
+    kw = dict(scale=shape[-1] ** -0.5, frames_valid=frames_valid)
+    n = build.launches["temporal_flash_attention"]
+    out = kernel.temporal_flash_attention(q, k, v, **kw)
+    assert build.launches["temporal_flash_attention"] == n + 1
+    gold = t_fa_ref.temporal_attention_ref(q, k, v, **kw)
+    _close(out.cpu(), gold.cpu(), TEMPORAL_F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+def test_temporal_attention_cuda_reads_strided_views(h100):
+    """q, k, v as column slices of one fused projection (no copy)."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    (qkv,) = _on(h100, torch.float32, *_tattn_inputs((2, 8, 30, 4, 96), seed=10)[:1])
+    q, k, v = qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]
+    out = kernel.temporal_flash_attention(q, k, v, scale=0.2)
+    _close(out.cpu(), t_fa_ref.temporal_attention_ref(q, k, v, scale=0.2).cpu(), TEMPORAL_F32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", TCONV_CASES + [(16, 5, 5, 40, 136, 3), (20, 3, 3, 17, 9, 5)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_temporal_conv1d_cuda_matches_plain(h100, case, dtype):
+    from repro_torch.kernels.conv2d import conv2d as kernel
+
+    F, H, W, C = case[:4]
+    x, w, b = _tconv_inputs(*case, seed=11)
+    xt, wt = _on(h100, dtype, x, w)
+    (bt,) = _on(h100, torch.float32, b)
+    n = build.launches["temporal_conv1d"]
+    out = kernel.temporal_conv1d(xt.reshape(2, F, H * W, C), wt, bt)
+    assert build.launches["temporal_conv1d"] == n + 1
+    gold = t_conv_ref.temporal_conv1d_ref(xt, wt, bt)
+    _close(out.reshape(gold.shape).cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)

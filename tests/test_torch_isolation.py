@@ -35,6 +35,13 @@ def test_port_has_files():
     assert len(PORT_FILES) > 20
 
 
+def test_checked_files_include_the_ttv_slice():
+    port = ROOT / "src" / "repro_torch"
+    for rel in ("models/ttv.py", "workload/ttv.py", "kernels/flash_attention/flash_attention.py",
+                "kernels/conv2d/conv2d.py", "models/layers/conv.py"):
+        assert port / rel in PORT_FILES
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [name for name in _imports(path) if _banned(name)]

@@ -27,8 +27,12 @@ from repro_torch.kernels.conv2d import ops as t_conv_ops
 from repro_torch.kernels.flash_attention import ops as t_fa_ops
 from repro_torch.kernels.flash_attention import ref as t_fa_ref
 from repro_torch.kernels.groupnorm_silu import ops as t_gn_ops
-from test_torch_cuda import (ATTN_CASES, BF16, CONV_SHAPES, EPILOGUES, F32, STATS,
-                             _attn_inputs, _close, _conv_case)
+from repro.kernels.flash_attention import flash_attention as j_fa_kernel
+from repro_torch.kernels.conv2d import conv2d as t_conv_kernel
+from repro_torch.kernels.flash_attention import flash_attention as t_fa_kernel
+from test_torch_cuda import (ATTN_CASES, BF16, CONV_SHAPES, EPILOGUES, F32, STATS, TATTN_CASES,
+                             TCONV_CASES, TEMPORAL_F32, _attn_inputs, _close, _conv_case,
+                             _tattn_inputs, _tconv_inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +162,72 @@ def test_attention_kv_offset_matches_jax_ref():
 
 
 # ---------------------------------------------------------------------------
+# temporal attention and temporal conv
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("F,HW", TATTN_CASES)
+def test_temporal_attention_matches_jax(F, HW):
+    """Port kernel tier (plain on CPU) and torch tier vs the JAX oracle and
+    the Pallas kernel in interpret mode (tiny spatial blocks)."""
+    q, k, v = _tattn_inputs((2, F, HW, 4, 32), seed=12)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    gold = j_fa_ref.temporal_attention_ref(jq, jk, jv)
+    interp = j_fa_ops.temporal_attention(jq, jk, jv, impl="interpret", block_hw=32)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for impl in ("kernel", "torch"):
+        out = t_fa_ops.temporal_attention(tq, tk, tv, impl=impl)
+        assert tuple(out.shape) == gold.shape
+        _close(out, gold, TEMPORAL_F32)
+        _close(out, interp, TEMPORAL_F32)
+
+
+@pytest.mark.parametrize("frames_valid", [1, 5, 8])
+def test_temporal_attention_frames_valid_matches_pallas(frames_valid):
+    """The wrapper's frame mask (plain version on CPU) vs the TPU kernel's
+    ``frames_valid`` in interpret mode, which the JAX dispatcher never sets."""
+    q, k, v = _tattn_inputs((2, 8, 40, 3, 16), seed=13)
+    gold = j_fa_kernel.temporal_flash_attention(
+        *map(jnp.asarray, (q, k, v)), scale=0.25, block_hw=8, frames_valid=frames_valid,
+        interpret=True)
+    out = t_fa_kernel.temporal_flash_attention(*map(torch.from_numpy, (q, k, v)), scale=0.25,
+                                               frames_valid=frames_valid)
+    _close(out, gold, TEMPORAL_F32)
+    with pytest.raises(ValueError, match="frames_valid"):
+        t_fa_kernel.temporal_flash_attention(*map(torch.from_numpy, (q, k, v)), scale=0.25,
+                                             frames_valid=9)
+
+
+@pytest.mark.parametrize("case", TCONV_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_temporal_conv1d_matches_jax(case):
+    x, w, b = _tconv_inputs(*case, seed=14)
+    jx, jw, jb = map(jnp.asarray, (x, w, b))
+    gold = j_conv_ref.temporal_conv1d_ref(jx, jw, jb)
+    interp = j_conv_ops.temporal_conv1d(jx, jw, jb, impl="interpret", block_n=16)
+    for impl in ("kernel", "torch"):
+        out = t_conv_ops.temporal_conv1d(*map(torch.from_numpy, (x, w, b)), impl=impl)
+        assert tuple(out.shape) == gold.shape
+        _close(out, gold, F32)
+        _close(out, interp, F32)
+
+
+def test_temporal_conv1d_wide_taps_and_bf16_match_jax_ref():
+    """K=5, and bf16 inputs (weights cast to the input type before the conv,
+    as in the reference).  The reference oracle takes C_out == C only (its
+    output reshape uses C)."""
+    x, w, b = _tconv_inputs(6, 3, 2, 5, K=5, seed=15)
+    gold = j_conv_ref.temporal_conv1d_ref(*map(jnp.asarray, (x, w, b)))
+    _close(t_conv_ops.temporal_conv1d(*map(torch.from_numpy, (x, w, b)), impl="kernel"),
+           gold, F32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    gold = j_conv_ref.temporal_conv1d_ref(xb, jnp.asarray(w), jnp.asarray(b))
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).bfloat16()
+    out = t_conv_ops.temporal_conv1d(xt, torch.from_numpy(w), torch.from_numpy(b), impl="kernel")
+    assert out.dtype == torch.bfloat16
+    _close(out, gold.astype(jnp.float32), BF16)
+
+
+# ---------------------------------------------------------------------------
 # groupnorm + silu
 # ---------------------------------------------------------------------------
 
@@ -188,6 +258,14 @@ def test_kernel_wrappers_on_cpu_count_no_launch():
     t_gn_ops.groupnorm_silu(x, torch.ones(8), torch.zeros(8), groups=2, impl="kernel")
     q = torch.randn(1, 4, 2, 8)
     t_fa_ops.attention(q, q, q, impl="kernel")
+    assert dict(build.launches) == before
+
+
+def test_temporal_wrappers_on_cpu_count_no_launch():
+    before = dict(build.launches)
+    q = torch.randn(1, 4, 6, 2, 8)
+    t_fa_ops.temporal_attention(q, q, q, impl="kernel")
+    t_conv_kernel.temporal_conv1d(torch.randn(1, 4, 6, 8), torch.randn(3, 8, 8), torch.zeros(8))
     assert dict(build.launches) == before
 
 
