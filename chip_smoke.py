@@ -51,9 +51,14 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores,
-# HBM3 bandwidth.  The kernels compute in fp32 on the CUDA cores.
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, TF32
+# on the tensor cores (dense), HBM3 bandwidth.  Each kernel's bound takes the
+# peak of the math it runs: conv2d runs on the tensor cores, as 3xTF32 (three
+# TF32 MMAs per fp32-accurate product) for fp32 inputs and two per product for
+# bf16 (its producer output is split, its weight is exact in TF32); the other
+# kernels compute in fp32 on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 F32 = dict(rtol=2e-5, atol=2e-5)  # the repo's kernel tolerance (tests/test_kernels.py)
 TEMPORAL_F32 = dict(rtol=3e-5, atol=3e-5)  # the repo's temporal attention tolerance
@@ -246,8 +251,10 @@ def conv_case(args, kw):
     # holds for its test shapes (R <= 72); widen by sqrt(R / 64) beyond that
     widen = max(1.0, math.sqrt(R / 64))
     tol = dict(rtol=F32["rtol"] * widen, atol=F32["atol"] * widen)
+    peak = PEAK_TF32_FLOPS / (3 if x.dtype == torch.float32 else 2)
     return dict(kernel=lambda: kmod.conv2d(x, w, **kw), plain=lambda: ref.conv2d_ref(x, w, **kw),
-                library=library, flops=flops, bytes=nbytes, tol=tol,
+                library=library, flops=flops, bytes=nbytes, tol=tol, peak=peak,
+                plan=kmod.plan(B, OH, OW, C_out, R),
                 shape=f"x{tuple(x.shape)} w{tuple(w.shape)} s{s} " + " ".join(
                     k for k in ("gn_a", "temb", "silu", "residual", "emit_stats")
                     if kw.get(k) is not None and kw.get(k) is not False),
@@ -380,18 +387,24 @@ def check_kernels(rec, stage_steps):
         ms = time_ms(case["kernel"])
         plain_ms = time_ms(case["plain"])
         library_ms = time_ms(case["library"])
-        ops_ms = case["flops"] / PEAK_FP32_FLOPS * 1e3
+        ops_ms = case["flops"] / case.get("peak", PEAK_FP32_FLOPS) * 1e3
         bytes_ms = case["bytes"] / PEAK_BYTES * 1e3
         row = dict(kernel=call["name"], shape=case["shape"], stages=dict(call["counts"]),
                    launches=weight, max_abs_err=err, max_abs_err_bf16=err_bf16,
                    tol_fp32=case["tol"], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   ops_ms=ops_ms, bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms))
+                   ops_ms=ops_ms, bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+                   # the bound at fp32 on the CUDA cores, as every kernel had it before
+                   bound_fp32_cores_ms=max(case["flops"] / PEAK_FP32_FLOPS * 1e3, bytes_ms),
+                   plan=case.get("plan"))
         row["roofline_share"] = row["bound_ms"] / ms
         rows.append(row)
         log(f"  {label}: x{weight} err {err:.2e} (bf16 {err_bf16:.2e}) kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f}, library {library_ms:.4f}, bound {row['bound_ms']:.4f} "
             f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
-            f"roofline {row['roofline_share']:.3f}")
+            f"roofline {row['roofline_share']:.3f}"
+            + (f", plan (bm, bn, splits) {row['plan']}" if row["plan"] else ""))
+        if row["roofline_share"] > 1:  # no card beats its bound: the bound is wrong
+            raise AssertionError(f"{label}: roofline share {row['roofline_share']:.3f} > 1")
         del case
         torch.cuda.empty_cache()
     return rows
@@ -429,7 +442,7 @@ def summarize(paths):
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
-            library_ms=tot("library_ms")))
+            library_ms=tot("library_ms"), bound_fp32_cores_ms=tot("bound_fp32_cores_ms")))
     return out
 
 

@@ -50,6 +50,22 @@ CONV_SHAPES = [
     (2, 12, 12, 8, 16, 1, 1),    # 1x1 skip conv
     (2, 8, 8, 4, 6, 3, 1),       # C_in=4 (conv_in)
 ]
+# Shapes that take the tensor-core conv kernel's other paths (``conv2d.plan``):
+# split-K slices, each block tile of ``conv2d.TILES`` unsplit, 16-byte copies
+# on 32-aligned C_in, the narrow tile with 4-byte copies of a C_out = 3 weight.
+TC_CONV_SHAPES = [
+    # B, H, W, Cin, Cout, K, stride
+    (2, 16, 16, 64, 96, 3, 1),      # 32-aligned C_in; split-K (R = 576, 4 slices)
+    (2, 8, 8, 64, 320, 3, 1),       # C_out = 320 at a small image: 64-wide tiles, split
+    (1, 16, 16, 128, 3, 3, 1),      # C_out = 3 after C_in = 128: the 128 x 16 tile
+    (2, 8, 8, 1280, 1280, 3, 1),    # SD 8x8 3x3: split-K
+    (2, 8, 8, 2560, 1280, 1, 1),    # SD 8x8 1x1 skip conv: split-K
+    (2, 16, 16, 64, 64, 3, 2),      # stride 2 on an aligned C_in
+    (5, 64, 64, 32, 128, 3, 1),     # unsplit 128 x 128
+    (2, 64, 64, 32, 320, 3, 1),     # unsplit 128 x 64
+    (32, 8, 8, 32, 640, 3, 1),      # unsplit 64 x 128
+    (2, 16, 16, 64, 1280, 3, 1),    # SD 16x16 widths: 128 x 128, split
+]
 EPILOGUES = [
     dict(bias=True),
     dict(bias=True, temb=True),
@@ -174,6 +190,41 @@ def test_conv2d_cuda_matches_plain(h100, shape, combo, dtype):
         _close(out[1].cpu(), gold[1].cpu(), STATS)
     else:
         _close(out.cpu(), gold.cpu(), tol)
+
+
+def _close_scaled(a, b, tol):
+    """``chip_smoke.py``'s criterion: |a - b| <= atol * max(1, max|b|) + rtol * |b|
+    (summation-order error follows the magnitude of the summed terms)."""
+    a, b = _np(a), _np(b)
+    scale = max(1.0, float(np.abs(b).max()))
+    bad = np.abs(a - b) > tol["atol"] * scale + tol["rtol"] * np.abs(b)
+    assert not bad.any(), (f"{int(bad.sum())} of {b.size} off by more than {tol}; "
+                           f"max abs err {np.abs(a - b).max():.3e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("combo", EPILOGUES[-2:], ids=lambda c: "-".join(sorted(c)))
+@pytest.mark.parametrize("shape", TC_CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv2d_tensor_core_paths_match_plain(h100, shape, combo, dtype):
+    from repro_torch.kernels.conv2d import conv2d as kernel
+
+    x, w, kw = _conv_case(shape, combo, seed=12)
+    tkw = {k: torch.from_numpy(v).to(h100) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    tkw["residual"] = tkw["residual"].to(dtype) if "residual" in tkw else None
+    xt, wt = _on(h100, dtype, x, w)
+    n = build.launches["conv2d"]
+    out, stats = kernel.conv2d(xt, wt, **tkw)
+    assert build.launches["conv2d"] == n + 1  # one count per call, however many kernels ran
+    gold, gold_stats = t_conv_ref.conv2d_ref(xt, wt, **tkw)
+    # fp32: the repo's 2e-5 holds for reductions up to R = 72; summation-order
+    # error grows as sqrt(R), so it is widened by sqrt(R / 64) as chip_smoke.py does
+    R = shape[5] ** 2 * shape[3]
+    widen = max(1.0, (R / 64) ** 0.5)
+    tol = ({k: v * widen for k, v in F32.items()} if dtype == torch.float32 else BF16)
+    _close_scaled(out.cpu(), gold.cpu(), tol)
+    _close_scaled(stats.cpu(), gold_stats.cpu(), STATS)
 
 
 @pytest.mark.gpu
