@@ -10,7 +10,9 @@ Phases 3-7 run for Stable Diffusion, then for Make-A-Video; each passes or
 raises, and nothing is caught:
 
   1. device   -- the card's name, count and power limit; capability (9, 0)
-  2. build    -- compile the hand-written CUDA kernels from csrc/ (nvcc)
+  2. build    -- compile the hand-written CUDA kernels from csrc/ (nvcc);
+                 the SASS of the flash-attention and conv GEMM kernels
+                 must hold TF32 tensor-core MMAs (cuobjdump)
   3. record   -- full-width weights from a seed; one generate pass with one
                  step per denoise stage records every distinct call each
                  kernel wrapper gets on the path, by stage
@@ -53,10 +55,12 @@ SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, TF32
 # on the tensor cores (dense), HBM3 bandwidth.  Each kernel's bound takes the
-# peak of the math it runs: conv2d runs on the tensor cores, as 3xTF32 (three
-# TF32 MMAs per fp32-accurate product) for fp32 inputs and two per product for
-# bf16 (its producer output is split, its weight is exact in TF32); the other
-# kernels compute in fp32 on the CUDA cores.
+# peak of the math it runs.  On the tensor cores, as 3xTF32 (three TF32 MMAs
+# per fp32-accurate product) for fp32 inputs: conv2d and the temporal conv
+# (one GEMM kernel; two MMAs per product for bf16, whose A operand is split)
+# and flash attention (for bf16 one MMA for Q.K^T and two for P.V, 1.5 per
+# product).  GroupNorm and temporal attention compute in fp32 on the CUDA
+# cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
@@ -73,7 +77,7 @@ SOURCES = {
                        "src/repro/kernels/groupnorm_silu/groupnorm_silu.py:84"),
     "temporal_flash_attention": ("src/repro_torch/kernels/csrc/temporal_attention.cu",
                                  "src/repro/kernels/flash_attention/flash_attention.py:213"),
-    "temporal_conv1d": ("src/repro_torch/kernels/csrc/temporal_conv1d.cu",
+    "temporal_conv1d": ("src/repro_torch/kernels/csrc/conv2d.cu",
                         "src/repro/kernels/conv2d/conv2d.py:314"),
 }
 
@@ -101,6 +105,41 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_mma(lib: Path, families=("fa_kernel", "conv2d_kernel")) -> dict | None:
+    """Tensor-core instructions of each kernel family in the built library:
+    per family, its instances and their ``HMMA`` opcodes (e.g.
+    ``HMMA.1688.F32.TF32``) in ``cuobjdump -sass``; fails if an instance has
+    none.  ``conv2d_kernel`` serves both ``rt_conv2d`` and
+    ``rt_temporal_conv1d``.  None where the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=600).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = collections.Counter()
+        elif name is not None and "HMMA" in line:
+            funcs[name]["HMMA" + line.split("HMMA")[1].split()[0].rstrip(";")] += 1
+    out = {}
+    for fam in families:
+        inst = {n: c for n, c in funcs.items() if fam in n}
+        bare = [n for n, c in inst.items() if not any("TF32" in op for op in c)]
+        if not inst or bare:
+            raise AssertionError(f"{fam}: {len(bare)} of {len(inst)} instances without a TF32 "
+                                 f"HMMA in the SASS")
+        ops = collections.Counter()
+        for c in inst.values():
+            ops.update(c)
+        out[fam] = dict(instances=len(inst), hmma_per_instance_min=min(
+            sum(c.values()) for c in inst.values()), opcodes=dict(ops))
+    return out
 
 
 def time_ms(fn, min_total_ms: float = 40.0, max_reps: int = 50) -> float:
@@ -279,6 +318,7 @@ def attention_case(args, kw):
         library=lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, scale=kw["scale"], is_causal=kw.get("causal", False)),
         flops=flops, bytes=nbytes, tol=F32,
+        peak=PEAK_TF32_FLOPS / (3 if q.dtype == torch.float32 else 1.5),
         shape=f"q{tuple(q.shape)} kv{tuple(k.shape)}",
         to_bf16=lambda: attention_case([t.bfloat16() for t in args], kw))
 
@@ -353,6 +393,8 @@ def temporal_conv_case(args, kw):
             x.reshape(B, nf, N, 1, C), w, bias).reshape(B, nf, N, C_out),
         library=library, flops=flops, bytes=nbytes,
         tol=dict(rtol=F32["rtol"] * widen, atol=F32["atol"] * widen),
+        peak=PEAK_TF32_FLOPS / (3 if x.dtype == torch.float32 else 2),
+        plan=kmod.plan(B, nf, N, C_out, K * C),
         shape=f"x{tuple(x.shape)} w{tuple(w.shape)}",
         to_bf16=lambda: temporal_conv_case([x.bfloat16(), w.bfloat16(), bias], kw))
 
@@ -612,6 +654,10 @@ def main() -> int:
     log(f"[build] {len(SOURCES)} kernels in {time.perf_counter() - t0:.2f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
     (OUT_DIR / "nvcc.log").write_text(build.nvcc_log())
+    mma = sass_mma(build.BUILD_ROOT / build.source_hash() / build.LIB_NAME)
+    log("[sass] " + ("cuobjdump not found: not checked" if mma is None else "; ".join(
+        f"{fam}: {v['instances']} instances, each with >= {v['hmma_per_instance_min']} HMMA, "
+        f"opcodes {v['opcodes']}" for fam, v in mma.items())))
 
     # -- 3-7, per path ----------------------------------------------------------
     t_all = time.perf_counter()
@@ -623,7 +669,7 @@ def main() -> int:
             MAKE_A_VIDEO, tag="main-ttv", record_steps=2, smi=smi, kernels=tuple(SOURCES)),
     }
     kernels = summarize(paths)
-    summary = dict(device=smi, kind=kind, paths_s=time.perf_counter() - t_all,
+    summary = dict(device=smi, kind=kind, paths_s=time.perf_counter() - t_all, sass_mma=mma,
                    paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,12 @@
-"""Wrappers of the conv CUDA kernels (``csrc/conv2d.cu``,
-``csrc/temporal_conv1d.cu``).
+"""Wrappers of the conv CUDA kernel (``csrc/conv2d.cu``).
 
 ``conv2d`` is the port of ``repro.kernels.conv2d.conv2d.conv2d_pallas``;
-``temporal_conv1d`` the port of ``temporal_conv1d_pallas`` there.  A CUDA
-tensor launches the hand-written kernel; a CPU tensor takes the plain
-version (``ref.conv2d_ref`` / ``ref.temporal_conv1d_ref``), which is how
-the CPU tests reach these functions.  ``plan`` picks the conv kernel's
-block tile and its split-K slices for each call.
+``temporal_conv1d`` the port of ``temporal_conv1d_pallas`` there, run by the
+same implicit-GEMM kernel with a (K x 1) filter over the (frames, positions)
+image.  A CUDA tensor launches the hand-written kernel; a CPU tensor takes
+the plain version (``ref.conv2d_ref`` / ``ref.temporal_conv1d_ref``), which
+is how the CPU tests reach these functions.  ``plan`` picks the kernel's
+block tile and its split-K slices for each call of either.
 """
 
 from __future__ import annotations
@@ -22,9 +22,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 12 + [_I] * 15 + [_P]
 
-_TCONV_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
+_TCONV_ARGTYPES = [_P] * 5 + [_I] * 10 + [_P]
 
-MAX_TAPS = 9  # csrc/temporal_conv1d.cu kMaxTaps
+# The temporal conv takes odd K up to this many taps (Make-A-Video uses 3),
+# the range its card tests cover; the GEMM itself has no tap limit.
+MAX_TAPS = 9
 
 # csrc/conv2d.cu's tiling: the (BM, BN) block tiles it instantiates, the
 # reduction depth of one pipeline chunk, and the rows per block of its split-K
@@ -182,10 +184,15 @@ def temporal_conv1d(
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("temporal conv kernel takes contiguous x and w")
     bias = _f32(bias, (C_out,))
+    bm, bn, splits = plan(B, F, N, C_out, K * C)
     out = torch.empty((B, F, N, C_out), dtype=x.dtype, device=dev)
+    ws = None
+    if splits > 1:
+        ws = torch.empty((splits, B, F * N, C_out), dtype=torch.float32, device=dev)
+    p = build.ptr
     fn = build.function("rt_temporal_conv1d", _TCONV_ARGTYPES)
-    err = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B, F, N, C, C_out,
-             K, build.DTYPE_CODES[x.dtype], build.stream(dev))
+    err = fn(p(x), p(w), p(bias), p(out), p(ws), B, F, N, C, C_out, K, bm, bn, splits,
+             build.DTYPE_CODES[x.dtype], build.stream(dev))
     build.check_error(err, "temporal_conv1d")
     build.launches["temporal_conv1d"] += 1
     return out

@@ -1,14 +1,22 @@
-// Fused implicit-GEMM NHWC Conv2D (K in {1, 3}, stride 1 or 2, pad K/2) on the
-// H100's tensor cores.
+// Fused implicit-GEMM NHWC Conv2D (a KH x KW filter, stride 1 or 2, pad
+// (KH/2, KW/2)) on the H100's tensor cores.
 //
-// Replaces: src/repro/kernels/conv2d/conv2d.py::conv2d_pallas (_conv2d_kernel):
-// every UNet and VAE convolution, with the fused GroupNorm(+SiLU) producer,
-// the bias -> temb -> SiLU -> residual epilogue and the next GroupNorm's
-// channel statistics.  Semantics: out = epilogue(conv(zero_pad(silu?(x*a+b)))),
-// the affine applied to in-bounds pixels only (the padding stays zero).
+// Replaces two TPU kernels of src/repro/kernels/conv2d/conv2d.py:
+// - conv2d_pallas (_conv2d_kernel), through rt_conv2d (KH = KW = K in
+//   {1, 3}): every UNet and VAE convolution, with the fused GroupNorm(+SiLU)
+//   producer, the bias -> temb -> SiLU -> residual epilogue and the next
+//   GroupNorm's channel statistics.  Semantics:
+//   out = epilogue(conv(zero_pad(silu?(x*a+b)))), the affine applied to
+//   in-bounds pixels only (the padding stays zero).
+// - temporal_conv1d_pallas (_tconv_kernel), through rt_temporal_conv1d: the
+//   K-tap conv over the frames of a (B, F, N, C) video tensor is this conv on
+//   the NHWC image H = F, W = N with a (K x 1) filter, pad (K/2, 0), stride
+//   1 and bias as its only epilogue.  The (K, C, C_out) weight is the HWIO
+//   weight with KW = 1, and the zero fill outside [0, F) is the conv's zero
+//   padding.  The tensor is read in place, never permuted.
 //
 // The conv is a GEMM of M = OH*OW output pixels (per image) by N = C_out by
-// R = K*K*C_in, with the (pixel, tap, channel) patch matrix never built in
+// R = KH*KW*C_in, with the (pixel, tap, channel) patch matrix never built in
 // HBM: each block gathers its A chunk straight from x and copies the matching
 // rows of the HWIO weight, which is already the (R, C_out) row-major B.
 //
@@ -106,7 +114,7 @@ struct Conv {
   T* out;
   float* partial;  // (B, stat tiles, 2, C_out) or null
   float* ws;       // (splits, B, P, C_out) fp32 slices, null without split-K
-  int B, H, W, Cin, OH, OW, Cout, K, stride, gn_silu, act_silu;
+  int B, H, W, Cin, OH, OW, Cout, KH, KW, pad_h, pad_w, stride, gn_silu, act_silu;
   int R, P, m_tiles, chunks_per_split;
   int a_vec, b_vec;  // 16-byte copies of A / B (fp32, 4-aligned channels)
 };
@@ -141,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) conv2d_kernel(const __grid_constant_
   const int n_chunks = (p.R + kBK - 1) / kBK;
   const int kc0 = blockIdx.z * p.chunks_per_split;
   const int nk = max(0, min(n_chunks, kc0 + p.chunks_per_split) - kc0);
-  const int pad = p.K / 2, Cin = p.Cin;
+  const int Cin = p.Cin;
   const T* xb = p.x + static_cast<size_t>(b) * p.H * p.W * Cin;
   const float* ga = p.gn_a == nullptr ? nullptr : p.gn_a + b * Cin;
   const float* gb = p.gn_b == nullptr ? nullptr : p.gn_b + b * Cin;
@@ -154,8 +162,8 @@ __global__ void __launch_bounds__(kThreads) conv2d_kernel(const __grid_constant_
   const auto decode = [&](int r, int& ci, int& kh, int& kw) {
     const int tap = r / Cin;
     ci = r - tap * Cin;
-    kh = tap / p.K;
-    kw = tap - kh * p.K;
+    kh = tap / p.KW;
+    kw = tap - kh * p.KW;
   };
   const auto in_image = [&](int ih, int iw) {
     return ih >= 0 && ih < p.H && iw >= 0 && iw < p.W;
@@ -171,8 +179,8 @@ __global__ void __launch_bounds__(kThreads) conv2d_kernel(const __grid_constant_
     const int m = m0 + a_row + kRowStep * j;
     row_ok[j] = m < p.P;
     const int oh = m / p.OW, ow = m - oh * p.OW;
-    ih0[j] = oh * p.stride - pad;
-    iw0[j] = ow * p.stride - pad;
+    ih0[j] = oh * p.stride - p.pad_h;
+    iw0[j] = ow * p.stride - p.pad_w;
   }
   // Element-wise A (odd C_in, bf16): column e_col of rows e_row + (kThreads / kBK) j.
   constexpr int kElemStep = kThreads / kBK;
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(kThreads) conv2d_kernel(const __grid_constant_
   const auto e_src = [&](int row, int kh, int kw, int ci, bool r_ok) -> const T* {
     const int m = m0 + row;
     const int oh = m / p.OW, ow = m - oh * p.OW;
-    const int ih = oh * p.stride - pad + kh, iw = ow * p.stride - pad + kw;
+    const int ih = oh * p.stride - p.pad_h + kh, iw = ow * p.stride - p.pad_w + kw;
     if (!(r_ok && m < p.P && in_image(ih, iw))) return nullptr;
     return xb + (static_cast<size_t>(ih) * p.W + iw) * Cin + ci;
   };
@@ -489,7 +497,7 @@ template <typename T>
 cudaError_t run(const void* x, const void* w, const void* gn_a, const void* gn_b,
                 const void* bias, const void* temb, const void* res, void* out, void* partial,
                 void* stats, void* ws, void* x_hat, int B, int H, int W, int Cin, int OH, int OW,
-                int Cout, int K, int stride, int gn_silu, int act_silu, int bm, int bn,
+                int Cout, int KH, int KW, int stride, int gn_silu, int act_silu, int bm, int bn,
                 int splits, cudaStream_t st) {
   const auto f = [](const void* q) { return static_cast<const float*>(q); };
   const auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
@@ -505,8 +513,8 @@ cudaError_t run(const void* x, const void* w, const void* gn_a, const void* gn_b
   Conv<T> p{static_cast<const T*>(x), static_cast<const T*>(w), f(gn_a), f(gn_b), f(bias),
             f(temb), static_cast<const T*>(res), static_cast<T*>(out),
             static_cast<float*>(partial), static_cast<float*>(ws),
-            B, H, W, Cin, OH, OW, Cout, K, stride, gn_silu, act_silu,
-            K * K * Cin, OH * OW, 0, 0,
+            B, H, W, Cin, OH, OW, Cout, KH, KW, KH / 2, KW / 2, stride, gn_silu, act_silu,
+            KH * KW * Cin, OH * OW, 0, 0,
             sizeof(T) == 4 && Cin % 4 == 0 && aligned(x),
             sizeof(T) == 4 && Cout % 4 == 0 && aligned(w)};
   return dispatch(p, static_cast<float*>(stats), bm, bn, splits, st);
@@ -524,10 +532,28 @@ extern "C" int rt_conv2d(const void* x, const void* w, const void* gn_a, const v
   const cudaError_t err =
       dtype == rt::kF32
           ? run<float>(x, w, gn_a, gn_b, bias, temb, res, out, partial, stats, workspace, x_hat,
-                       B, H, W, Cin, OH, OW, Cout, K, stride, gn_silu, act_silu, bm, bn, splits,
-                       st)
+                       B, H, W, Cin, OH, OW, Cout, K, K, stride, gn_silu, act_silu, bm, bn,
+                       splits, st)
           : run<__nv_bfloat16>(x, w, gn_a, gn_b, bias, temb, res, out, partial, stats,
-                               workspace, x_hat, B, H, W, Cin, OH, OW, Cout, K, stride, gn_silu,
-                               act_silu, bm, bn, splits, st);
+                               workspace, x_hat, B, H, W, Cin, OH, OW, Cout, K, K, stride,
+                               gn_silu, act_silu, bm, bn, splits, st);
+  return static_cast<int>(err);
+}
+
+// y[b, f, n] = bias + sum_k x[b, f + k - K/2, n] @ w[k] for x (B, F, N, C),
+// w (K, C, C_out): the GEMM above on the image (F, N) with a (K x 1) filter.
+extern "C" int rt_temporal_conv1d(const void* x, const void* w, const void* bias, void* out,
+                                  void* workspace, int B, int F, int N, int C, int Cout, int K,
+                                  int bm, int bn, int splits, int dtype, void* stream) {
+  if (K < 1 || K % 2 == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      dtype == rt::kF32
+          ? run<float>(x, w, nullptr, nullptr, bias, nullptr, nullptr, out, nullptr, nullptr,
+                       workspace, nullptr, B, F, N, C, F, N, Cout, K, 1, 1, 0, 0, bm, bn, splits,
+                       st)
+          : run<__nv_bfloat16>(x, w, nullptr, nullptr, bias, nullptr, nullptr, out, nullptr,
+                               nullptr, workspace, nullptr, B, F, N, C, F, N, Cout, K, 1, 1, 0,
+                               0, bm, bn, splits, st);
   return static_cast<int>(err);
 }

@@ -32,17 +32,13 @@ from repro_torch.workload import workload_for
 from test_torch_cuda import EPILOGUES, F32, TC_CONV_SHAPES, _conv_case
 
 
-def _temporal_conv_ref(x, w, bias):
-    B, F, N, C = x.shape
-    return conv_ref.temporal_conv1d_ref(x.reshape(B, F, N, 1, C), w, bias).reshape(
-        B, F, N, w.shape[-1])
-
-
 @pytest.fixture(scope="module")
 def conv_calls():
     """(B, OH, OW, C_out, R) -> count, for every conv2d call of one UNet
-    step, one VideoUNet step and the VAE decoder at full width, per config."""
-    calls = {}
+    step, one VideoUNet step and the VAE decoder at full width, per config;
+    under "temporal", (B, F, N, C_out, K * C) of every temporal conv call,
+    the plan's arguments for the same GEMM kernel."""
+    calls = {"temporal": collections.Counter()}
 
     def recording(x, w, **kw):
         K, s = w.shape[0], kw.get("stride", 1)
@@ -51,11 +47,17 @@ def conv_calls():
         calls[name][(B, OH, OW, w.shape[3], K * K * C_in)] += 1
         return conv_ref.conv2d_ref(x, w, **kw)
 
+    def temporal_recording(x, w, bias):
+        B, F, N, C = x.shape
+        calls["temporal"][(B, F, N, w.shape[2], w.shape[0] * C)] += 1
+        return conv_ref.temporal_conv1d_ref(x.reshape(B, F, N, 1, C), w, bias).reshape(
+            B, F, N, w.shape[-1])
+
     meta = dict(device="meta")
     with pytest.MonkeyPatch.context() as mp, torch.inference_mode():
         # the wrappers take their plain versions, which run on meta tensors
         mp.setattr(kernel, "conv2d", recording)
-        mp.setattr(kernel, "temporal_conv1d", _temporal_conv_ref)
+        mp.setattr(kernel, "temporal_conv1d", temporal_recording)
         mp.setattr(fa_kernel, "flash_attention", fa_ref.attention_ref)
         mp.setattr(fa_kernel, "temporal_flash_attention", fa_ref.temporal_attention_ref)
         mp.setattr(gn_kernel, "groupnorm_silu", gn_ref.groupnorm_silu_ref)
@@ -108,6 +110,21 @@ def test_plan_fills_the_card_at_every_main_path_conv(conv_calls, cfg):
     # SD's 8x8 level, the card's most starved grid (20 blocks), is split
     if cfg is STABLE_DIFFUSION:
         assert kernel.plan(2, 8, 8, 1280, 11520)[2] > 1
+
+
+def test_plan_fills_the_card_unsplit_at_every_temporal_conv(conv_calls):
+    """Make-A-Video's temporal convs, (2, 16, N, C) -> C_out over K * C: the
+    GEMM's grid fills the card with whole reductions (1280, 640 and 160
+    blocks of 128 x 128)."""
+    shapes = conv_calls["temporal"]
+    assert set(shapes) == {(2, 16, 1024, 640, 1920), (2, 16, 256, 1280, 3840),
+                           (2, 16, 64, 1280, 3840)}
+    blocks = []
+    for (B, F, N, C_out, R) in shapes:
+        bm, bn, splits = kernel.plan(B, F, N, C_out, R)
+        assert (bm, bn, splits) == (128, 128, 1)
+        blocks.append(_blocks(B, F, N, C_out, bm, bn))
+    assert sorted(blocks) == [160, 640, 1280] and min(blocks) >= kernel.SMS
 
 
 def test_card_test_shapes_reach_every_tile_split_and_unsplit():

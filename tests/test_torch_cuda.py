@@ -113,6 +113,10 @@ ATTN_CASES = [
     (1, 50, 50, 2, 2, 80, False, None),    # SD level-1 head dim
     (1, 70, 70, 4, 2, 64, True, None),     # causal + GQA
     (1, 70, 70, 2, 2, 32, True, 16),       # causal local window
+    (1, 48, 48, 2, 2, 160, False, None),   # SD 16x16/8x8 and MAV head dim
+    (1, 40, 40, 2, 1, 36, False, None),    # head dim no multiple of 8, GQA
+    (1, 45, 45, 2, 2, 33, True, None),     # odd head dim (4-byte copies), causal
+    (1, 130, 77, 2, 2, 64, False, None),   # Sq, Skv no multiple of the block
 ]
 
 
@@ -244,6 +248,44 @@ def test_attention_cuda_matches_plain(h100, case, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_cuda_rows_with_no_key_in_the_window_give_zero(h100, dtype):
+    """Every query position lies past the last key by more than the window:
+    the kernel skips every key tile, and the rows give 0 (the plain version
+    spreads their weight evenly over the masked keys instead)."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs((1, 130, 77, 2, 2, 64), seed=13))
+    n = build.launches["flash_attention"]
+    out = kernel.flash_attention(q, k, v, scale=0.125, window=16, kv_offset=300)
+    assert build.launches["flash_attention"] == n + 1
+    assert out.shape == q.shape and torch.count_nonzero(out).item() == 0
+
+
+@pytest.mark.gpu
+def test_attention_cuda_reads_strided_views(h100):
+    """q, k, v as column slices of one fused projection (no copy): 16-byte
+    copies from rows 3 * H * D floats apart."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    (qkv,) = _on(h100, torch.float32, *_attn_inputs((2, 100, 100, 4, 4, 120), seed=14)[:1])
+    q, k, v = qkv[..., :40], qkv[..., 40:80], qkv[..., 80:]
+    out = kernel.flash_attention(q, k, v, scale=40 ** -0.5)
+    _close(out.cpu(), t_fa_ref.attention_ref(q, k, v, scale=40 ** -0.5).cpu(), F32)
+
+
+@pytest.mark.gpu
+def test_attention_cuda_main_path_shape(h100):
+    """SD's level-0 self-attention, (2, 4096, 8, 40), once in fp32."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, torch.float32, *_attn_inputs((2, 4096, 4096, 8, 8, 40), seed=15))
+    out = kernel.flash_attention(q, k, v, scale=40 ** -0.5)
+    gold = t_fa_ref.attention_ref(q, k, v, scale=40 ** -0.5)
+    _close(out.cpu(), gold.cpu(), F32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("silu", [True, False])
 @pytest.mark.parametrize("shape", [(2, 100, 64, 8), (2, 4096, 320, 32), (2, 64, 1280, 32)])
 def test_groupnorm_cuda_matches_plain(h100, shape, silu, dtype):
@@ -294,8 +336,13 @@ def test_temporal_attention_cuda_reads_strided_views(h100):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", TCONV_CASES + [(16, 5, 5, 40, 136, 3), (20, 3, 3, 17, 9, 5)],
-                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("case", TCONV_CASES + [
+    (16, 5, 5, 40, 136, 3), (20, 3, 3, 17, 9, 5),
+    (16, 5, 7, 40, 72, 1),      # K = 1, C_out != C, 560 rows: a ragged row tile
+    (9, 6, 11, 64, 96, 5),      # K = 5, 16-byte copies, ragged rows
+    (8, 4, 4, 128, 64, 3),      # a grid of 2 blocks: split-K with the bias epilogue
+    (16, 32, 32, 64, 128, 3),   # 16 frames of 1024 positions, as at full width: unsplit
+], ids=lambda c: "x".join(map(str, c)))
 def test_temporal_conv1d_cuda_matches_plain(h100, case, dtype):
     from repro_torch.kernels.conv2d import conv2d as kernel
 
@@ -308,3 +355,18 @@ def test_temporal_conv1d_cuda_matches_plain(h100, case, dtype):
     assert build.launches["temporal_conv1d"] == n + 1
     gold = t_conv_ref.temporal_conv1d_ref(xt, wt, bt)
     _close(out.reshape(gold.shape).cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+def test_temporal_conv1d_cuda_counts_only_its_own_launches(h100):
+    """The temporal conv runs on conv2d's GEMM kernel, under its own count."""
+    from repro_torch.kernels.conv2d import conv2d as kernel
+
+    x, w, b = _tconv_inputs(16, 8, 8, 64, seed=16)
+    xt, wt, bt = _on(h100, torch.float32, x, w, b)
+    before = dict(build.launches)
+    out = kernel.temporal_conv1d(xt.reshape(2, 16, 64, 64), wt, bt)
+    assert build.launches["temporal_conv1d"] == before.get("temporal_conv1d", 0) + 1
+    assert build.launches["conv2d"] == before.get("conv2d", 0)
+    gold = t_conv_ref.temporal_conv1d_ref(xt, wt, bt)
+    _close_scaled(out.reshape(gold.shape).cpu(), gold.cpu(), F32)
