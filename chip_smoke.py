@@ -19,7 +19,10 @@ raises, and nothing is caught:
   4. kernels  -- each recorded call replayed: the CUDA kernel against its
                  plain PyTorch version on the same inputs, in fp32 and bf16,
                  timed beside the plain version, one library call and the
-                 card's bound; weighted by its stage's steps
+                 card's bound; weighted by its stage's steps.  A kernel has
+                 two times: ``ms``, back-to-back wrapper calls (host launch
+                 cost included), and ``device_ms``, its launches captured in
+                 a CUDA graph and replayed (the card's time alone)
   5. unet     -- one full-width UNet (VideoUNet) step on the kernel tier
                  against the torch tier, same weights and latent
   6. main     -- the path: ``workload_for(cfg)``, 2 requests through
@@ -159,6 +162,30 @@ def time_ms(fn, min_total_ms: float = 40.0, max_reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, ms: float, replays: int = 3) -> float:
+    """Device time of one call of ``fn`` without the host: about 5 ms of
+    calls (2-50) captured in one CUDA graph, the graph replayed ``replays``
+    times between CUDA events.  ``ms`` is the call's time from ``time_ms``.
+    A capture that fails raises."""
+    launches = max(2, min(50, int(5.0 / max(ms, 1e-3))))
+    fn()  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    out = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return out
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -293,7 +320,7 @@ def conv_case(args, kw):
     peak = PEAK_TF32_FLOPS / (3 if x.dtype == torch.float32 else 2)
     return dict(kernel=lambda: kmod.conv2d(x, w, **kw), plain=lambda: ref.conv2d_ref(x, w, **kw),
                 library=library, flops=flops, bytes=nbytes, tol=tol, peak=peak,
-                plan=kmod.plan(B, OH, OW, C_out, R),
+                plan=dict(zip(("bm", "bn", "splits"), kmod.plan(B, OH, OW, C_out, R))),
                 shape=f"x{tuple(x.shape)} w{tuple(w.shape)} s{s} " + " ".join(
                     k for k in ("gn_a", "temb", "silu", "residual", "emit_stats")
                     if kw.get(k) is not None and kw.get(k) is not False),
@@ -329,6 +356,7 @@ def groupnorm_case(args, kw):
 
     x, scale, bias = args
     x_cf = x.transpose(1, 2).contiguous()  # channels-first copy for F.group_norm
+    plan = kmod.plan(*x.shape, kw["groups"], x.element_size())
 
     def library():
         y = torch.nn.functional.group_norm(x_cf, kw["groups"], scale, bias, kw.get("eps", 1e-5))
@@ -338,7 +366,8 @@ def groupnorm_case(args, kw):
         kernel=lambda: kmod.groupnorm_silu(x, scale, bias, **kw),
         plain=lambda: ref.groupnorm_silu_ref(x, scale, bias, **kw),
         library=library, flops=8.0 * x.numel(), bytes=2 * _nbytes(x) + _nbytes(scale, bias),
-        tol=F32, shape=f"x{tuple(x.shape)} groups {kw['groups']} silu {kw.get('silu', True)}",
+        tol=F32, plan=plan._asdict(),
+        shape=f"x{tuple(x.shape)} groups {kw['groups']} silu {kw.get('silu', True)}",
         to_bf16=lambda: groupnorm_case([x.bfloat16(), scale, bias], kw))
 
 
@@ -349,6 +378,7 @@ def temporal_attention_case(args, kw):
     q, k, v = args
     B, nf, HW, H, D = q.shape
     flops = 4.0 * B * HW * H * nf * nf * D
+    plan = kmod.temporal_plan(B, nf, HW, H, D, q.element_size())
     nbytes = 4 * _nbytes(q)  # q, k, v read once, out written once
 
     def library():
@@ -363,7 +393,7 @@ def temporal_attention_case(args, kw):
     return dict(
         kernel=lambda: kmod.temporal_flash_attention(q, k, v, **kw),
         plain=lambda: ref.temporal_attention_ref(q, k, v, **kw),
-        library=library, flops=flops, bytes=nbytes, tol=TEMPORAL_F32,
+        library=library, flops=flops, bytes=nbytes, tol=TEMPORAL_F32, plan=plan._asdict(),
         shape=f"q{tuple(q.shape)}",
         to_bf16=lambda: temporal_attention_case([t.bfloat16() for t in args], kw))
 
@@ -394,7 +424,7 @@ def temporal_conv_case(args, kw):
         library=library, flops=flops, bytes=nbytes,
         tol=dict(rtol=F32["rtol"] * widen, atol=F32["atol"] * widen),
         peak=PEAK_TF32_FLOPS / (3 if x.dtype == torch.float32 else 2),
-        plan=kmod.plan(B, nf, N, C_out, K * C),
+        plan=dict(zip(("bm", "bn", "splits"), kmod.plan(B, nf, N, C_out, K * C))),
         shape=f"x{tuple(x.shape)} w{tuple(w.shape)}",
         to_bf16=lambda: temporal_conv_case([x.bfloat16(), w.bfloat16(), bias], kw))
 
@@ -427,26 +457,31 @@ def check_kernels(rec, stage_steps):
         err_bf16 = _compare(label + " bf16", bf, bf["kernel"](), bf["plain"](), BF16)
         del bf
         ms = time_ms(case["kernel"])
+        dev_ms = device_ms(case["kernel"], ms)
         plain_ms = time_ms(case["plain"])
         library_ms = time_ms(case["library"])
         ops_ms = case["flops"] / case.get("peak", PEAK_FP32_FLOPS) * 1e3
         bytes_ms = case["bytes"] / PEAK_BYTES * 1e3
         row = dict(kernel=call["name"], shape=case["shape"], stages=dict(call["counts"]),
                    launches=weight, max_abs_err=err, max_abs_err_bf16=err_bf16,
-                   tol_fp32=case["tol"], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   tol_fp32=case["tol"], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
                    ops_ms=ops_ms, bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
                    # the bound at fp32 on the CUDA cores, as every kernel had it before
                    bound_fp32_cores_ms=max(case["flops"] / PEAK_FP32_FLOPS * 1e3, bytes_ms),
                    plan=case.get("plan"))
         row["roofline_share"] = row["bound_ms"] / ms
+        row["device_roofline_share"] = row["bound_ms"] / dev_ms
         rows.append(row)
-        log(f"  {label}: x{weight} err {err:.2e} (bf16 {err_bf16:.2e}) kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f}, library {library_ms:.4f}, bound {row['bound_ms']:.4f} "
-            f"({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
-            f"roofline {row['roofline_share']:.3f}"
-            + (f", plan (bm, bn, splits) {row['plan']}" if row["plan"] else ""))
-        if row["roofline_share"] > 1:  # no card beats its bound: the bound is wrong
-            raise AssertionError(f"{label}: roofline share {row['roofline_share']:.3f} > 1")
+        log(f"  {label}: x{weight} err {err:.2e} (bf16 {err_bf16:.2e}) kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f}), plain {plain_ms:.4f}, library {library_ms:.4f}, bound "
+            f"{row['bound_ms']:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}), "
+            f"roofline {row['roofline_share']:.3f} (device {row['device_roofline_share']:.3f})"
+            + (f", plan {row['plan']}" if row["plan"] else ""))
+        # no card beats its bound: a share above 1 means the bound is wrong
+        for key in ("roofline_share", "device_roofline_share"):
+            if row[key] > 1:
+                raise AssertionError(f"{label}: {key} {row[key]:.3f} > 1")
         del case
         torch.cuda.empty_cache()
     return rows
@@ -473,16 +508,19 @@ def breakdown(rows, stage_steps):
 
 def summarize(paths):
     """The ``{"kernels": [...]}`` entries: launches and times summed over
-    the main runs of every path."""
+    the main runs of the given paths, for each kernel they launch."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         rs = [r for p in paths.values() for r in p["rows"] if r["kernel"] == name]
+        if not rs:
+            continue
         tot = lambda k: sum(r["launches"] * r[k] for r in rs)  # noqa: E731
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(p["launches"].get(name, 0) for p in paths.values()),
             max_abs_err=max(r["max_abs_err"] for r in rs),
-            ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
+            ms=tot("ms"), device_ms=tot("device_ms"), plain_ms=tot("plain_ms"),
+            bound_ms=tot("bound_ms"),
             bound_by="operations" if tot("ops_ms") >= tot("bytes_ms") else "bytes",
             library_ms=tot("library_ms"), bound_fp32_cores_ms=tot("bound_fp32_cores_ms")))
     return out
@@ -600,6 +638,11 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         split = breakdown(rows, stage_steps)
         log(f"[breakdown] {cfg.name} kernel ms per step {split['step_ms_by_stage_and_kernel']}; "
             f"conv2d by input size {split['conv_step_ms_by_stage_and_input_hw']}")
+        per_kernel = summarize({cfg.name: dict(rows=rows, launches=launches)})
+        log(f"[kernels] {cfg.name} over one generate (ms): " + "; ".join(
+            f"{k['name']} x{k['launches']}: wall {k['ms']:.2f}, device {k['device_ms']:.2f}, "
+            f"bound {k['bound_ms']:.2f}, library {k['library_ms']:.2f}, plain {k['plain_ms']:.2f}"
+            for k in per_kernel))
         del out
 
     # -- 7. small input: the card's kernel path against the CPU plain path --------
@@ -620,7 +663,8 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
     return dict(rows=rows, launches=launches, summary=dict(
         denoise_steps=cfg.denoise_steps, stage_steps=stage_steps, generate_s=wall,
         stage_s=stage_s, step_ms=step_ms, unet_tier_ms=unet_ms, peak_gib=peak / 2**30,
-        unet_kernel_vs_torch_err=unet_err, small_err=small_err, launches=launches, **split))
+        unet_kernel_vs_torch_err=unet_err, small_err=small_err, launches=launches,
+        kernels=per_kernel, **split))
 
 
 # ---------------------------------------------------------------------------

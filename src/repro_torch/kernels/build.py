@@ -33,6 +33,13 @@ LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# The card the kernels are built for (H100 SXM): its streaming
+# multiprocessors, the shared memory one block may use, and the shared memory
+# of one SM (of which each resident block also reserves 1 KB).
+SMS = 132
+SMEM_LIMIT = 232448
+SM_SMEM = 233472
+
 # dtype codes of csrc/common.cuh (rt::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,6 +47,8 @@ launches: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
+_functions: dict = {}  # entry-point name -> ctypes function, argtypes set
+_capabilities: dict = {}  # device index -> compute capability
 
 
 def source_hash() -> str:
@@ -113,10 +122,14 @@ def library() -> ctypes.CDLL:
 
 
 def function(name: str, argtypes: list):
-    """C entry point ``name`` of the built library, with its argtypes set."""
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """C entry point ``name`` of the built library, with its argtypes set;
+    looked up once and cached, so a launch pays no lookup."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
 
 
@@ -129,7 +142,9 @@ def check_device(*tensors: torch.Tensor | None) -> torch.device:
             raise ValueError(f"tensors on {t.device} and {dev}")
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
-    cap = torch.cuda.get_device_capability(dev)
+    cap = _capabilities.get(dev.index)
+    if cap is None:  # asked once per device
+        cap = _capabilities[dev.index] = torch.cuda.get_device_capability(dev)
     if cap != (9, 0):
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); {torch.cuda.get_device_name(dev)} "
@@ -148,7 +163,10 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 
 def stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The handle of ``dev``'s current stream, through PyTorch's raw
+    accessor (the one its generated kernels call), which spares each launch
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def nvcc_log() -> str:

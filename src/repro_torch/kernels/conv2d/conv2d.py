@@ -34,7 +34,6 @@ MAX_TAPS = 9
 TILES = ((128, 128), (128, 64), (64, 128), (128, 16))
 CHUNK = 32
 SPLIT_ROWS = 16
-SMS = 132  # streaming multiprocessors of the H100 SXM: one wave of blocks
 MIN_SLICE_CHUNKS = 4  # a split-K slice walks at least this many chunks
 
 
@@ -49,8 +48,8 @@ def plan(B: int, OH: int, OW: int, C_out: int, R: int) -> tuple[int, int, int]:
 
     The tile is the first of ``TILES`` (least padding of OH*OW and C_out,
     then larger) whose grid of ``B * ceil(OH*OW/bm) * ceil(C_out/bn)`` blocks
-    fills the card's ``SMS``; it then runs unsplit.  Where no tile does, the
-    least-padded one is split over R: the smallest split count in
+    fills the card's ``build.SMS``; it then runs unsplit.  Where no tile
+    does, the least-padded one is split over R: the smallest split count in
     [ceil(SMS/blocks), 2 ceil(SMS/blocks)] that wastes least of its last
     wave, each slice a whole number of ``CHUNK``-deep chunks, at least
     ``MIN_SLICE_CHUNKS`` of them, and no slice empty."""
@@ -60,14 +59,14 @@ def plan(B: int, OH: int, OW: int, C_out: int, R: int) -> tuple[int, int, int]:
              if (bm, bn) in TILES]
     blocks = {c: B * -(-P // c[0]) * -(-C_out // c[1]) for c in cands}
     for c in cands:
-        if blocks[c] >= SMS:
+        if blocks[c] >= build.SMS:
             return (*c, 1)
     bm, bn = cands[0]
     n = blocks[cands[0]]
     s_max = max(1, -(-R // CHUNK) // MIN_SLICE_CHUNKS)
-    s_min = min(-(-SMS // n), s_max)
+    s_min = min(-(-build.SMS // n), s_max)
     splits = min(range(s_min, min(2 * s_min, s_max) + 1),
-                 key=lambda s: (-(-n * s // SMS) / s, s))
+                 key=lambda s: (-(-n * s // build.SMS) / s, s))
     return bm, bn, len(slices(R, splits))
 
 

@@ -59,6 +59,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0)

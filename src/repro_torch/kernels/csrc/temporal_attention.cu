@@ -10,224 +10,354 @@
 // What bounds it on the H100: bytes.  Per (position, head) the kernel reads
 // 3*F*D and writes F*D elements and does 4*F*F*D flops: at F = 16 in fp32
 // that is 4 flops per byte moved, far below the 20 flops per byte at which
-// fp32 FMAs (67 TFLOP/s) would take over from HBM (3.35 TB/s).
+// fp32 FMAs (67 TFLOP/s) would take over from HBM (3.35 TB/s).  So the
+// design keeps many bytes in flight and hides the math under the copies.
 //
-// Design: one block of 128 threads per (tile of NP spatial positions, head,
-// batch), NP = 128 / FM where FM is F rounded up to a power of two (the
-// compile-time frame limit is 32).  The block copies the q, k and v rows of
-// its positions (each row D contiguous elements, float4 / 4 x bf16 loads
-// where the strides allow) into shared memory once: F*D*4 bytes per operand
-// and position (4 KB at F = 16, D = 64), plus 4 floats of padding per row
-// and per position, zero-filling the ragged spatial tail and the head dim
-// up to a multiple of 4.  Thread (position p, frame i) then owns query row
-// i: its F scores stay in registers, keys at or past frames_valid score
-// -1e30 (exactly weight 0 after the full softmax, as on the TPU), and P.V
-// reads the v rows of its position from shared memory.  The threads of one
-// position read the same k/v element at once (a broadcast); the padding
-// puts the per-thread q rows, and the two positions of a warp, on different
-// banks.  Each thread writes its output row over its own q row, and the
-// block stores the tile with the same coalesced pattern it loaded.
-// Statistics and accumulation are fp32 as on the TPU.
+// Design (the launch plan, warps per block, shared memory and grid, is
+// computed in Python: kernels/flash_attention/flash_attention.py::temporal_plan):
+// 1. Warps are independent.  A work item is NP = 32 / FM positions of one
+//    (head, batch), FM = F rounded up to a power of two (4..32), so a stage
+//    holds 32 rows of each operand and one warp holds one item.  Each warp
+//    walks its own stream of items (item, item + all warps, ...) through a
+//    private ring of two stages; no block barrier is needed.
+// 2. Copies overlap the math.  Each stage holds the q, k and v rows of one
+//    item (3 x 32 rows of RS elements, in the input type).  While the warp
+//    computes item t from one stage, cp.async copies of item t+1 fill the
+//    other: 16-byte copies (fp32) or 8-byte (bf16), lanes on neighbouring
+//    4-element chunks of a row, where D % 4 == 0 and strides and pointers
+//    allow (every main-path call); otherwise plain loads.  At F = 16, D = 64
+//    in fp32 a stage is 26 KB and a block of 4 warps 204 KB: each SM keeps
+//    up to 8 items (~200 KB) of copies in flight.  Rows past F, positions
+//    past HW and the head dim past D (up to a multiple of 8) are zero-filled.
+// 3. The math on the CUDA cores, with few shared-memory loads per FMA: a
+//    16-byte load serves only 8 lanes a cycle, and the k and v rows are the
+//    same for all lanes of a position, so shared-memory bandwidth rather
+//    than the FMAs is what the math spends.  Lane (p, h, r) takes query rows
+//    r and r + FM/2 of position p over half h of the head dim: each k or v
+//    load feeds 8 FMAs, and one xor shuffle per score adds the halves.  The
+//    F scores of a row stay in registers, keys at or past frames_valid score
+//    -1e30 (exactly weight 0 after the full softmax, as on the TPU), and P.V
+//    reads the v rows of the position.  Lanes write their output over their
+//    own q elements; the warp then stores the item with the same coalesced
+//    pattern it loaded.  Row strides RS = 4 (mod 8) elements keep the
+//    lanes' q-row reads free of bank conflicts in fp32 at F = 16 and 32,
+//    while the lanes that share a k or v read see one address.  Statistics and
+//    accumulation are fp32 as on the TPU.
 
 #include "common.cuh"
+#include "mma_tf32.cuh"  // cp.async
 
 namespace {
 
-constexpr int kThreads = 128, kMaxFrames = 32, kPad = 4;
+constexpr int kStages = 2, kMaxWarps = 4, kMaxFrames = 32;
 
 struct Strides {
   long long b, f, n, h;
 };
 
+struct Params {
+  const void *q, *k, *v;
+  void* o;
+  int F, HW, H, D, DP, RS;  // frames, positions, heads, head dim, head dim padded to 8, row stride
+  int tiles, items;         // position tiles per (batch, head); B * H * tiles
+  Strides s[4];             // q, k, v, o
+  float scale;
+  int frames_valid, vec;
+};
+
+// 4 neighbouring elements: as floats, and as raw 16-byte / 8-byte copies.
 template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
+__device__ __forceinline__ float4 ld4(const T* p);
 template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
+__device__ __forceinline__ float4 ld4<float>(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+__device__ __forceinline__ float4 ld4<__nv_bfloat16>(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-template <typename T, int FM>
-__global__ void __launch_bounds__(kThreads)
-temporal_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o, int F, int HW, int D,
-                          Strides sq, Strides sk, Strides sv, Strides so, float scale,
-                          int frames_valid, int vec) {
-  constexpr int NP = kThreads / FM;
-  extern __shared__ __align__(16) float smem[];
-  const int DP = (D + 3) & ~3;       // head dim padded to a float4
-  const int RS = DP + kPad;          // floats per frame row
-  const int PS = F * RS + kPad;      // floats per position and operand
-  float* Qs = smem;
-  float* Ks = Qs + NP * PS;
-  float* Vs = Ks + NP * PS;
-
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * NP, h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  // -- load: (position, frame, 4-element chunk), chunk fastest -------------
-  const int D4 = DP / 4, rows = NP * F;
-  for (int idx = tid; idx < rows * D4; idx += kThreads) {
-    const int r = idx / D4, d = (idx - r * D4) * 4;
-    const int p = r / F, f = r - p * F, n = n0 + p;
-    const int off = p * PS + f * RS + d;
-    const T* qr = qb + f * sq.f + n * sq.n + d;
-    const T* kr = kb + f * sk.f + n * sk.n + d;
-    const T* vr = vb + f * sv.f + n * sv.n + d;
-    if (vec) {
-      float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), kv = qv, vv = qv;
-      if (n < HW) {
-        qv = load4(qr);
-        kv = load4(kr);
-        vv = load4(vr);
-      }
-      *reinterpret_cast<float4*>(Qs + off) = qv;
-      *reinterpret_cast<float4*>(Ks + off) = kv;
-      *reinterpret_cast<float4*>(Vs + off) = vv;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = n < HW && d + e < D;
-        Qs[off + e] = ok ? rt::to_f(qr[e]) : 0.f;
-        Ks[off + e] = ok ? rt::to_f(kr[e]) : 0.f;
-        Vs[off + e] = ok ? rt::to_f(vr[e]) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
-  // -- compute: thread (p, i) owns query row i of position p ----------------
-  const int p = tid / FM, i = tid - p * FM;
-  if (i < F) {
-    float* qrow = Qs + p * PS + i * RS;
-    const float* kp = Ks + p * PS;
-    const float* vp = Vs + p * PS;
-    float s[FM];
-#pragma unroll
-    for (int j = 0; j < FM; ++j) s[j] = 0.f;
-    for (int d = 0; d < DP; d += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(qrow + d);
-#pragma unroll
-      for (int j = 0; j < FM; ++j) {
-        if (j < F) {
-          const float4 c = *reinterpret_cast<const float4*>(kp + j * RS + d);
-          s[j] = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, fmaf(a.w, c.w, s[j]))));
-        }
-      }
-    }
-    float m = rt::kNegInf;
-#pragma unroll
-    for (int j = 0; j < FM; ++j) {
-      if (j < F) {
-        s[j] = j < frames_valid ? s[j] * scale : rt::kNegInf;
-        m = fmaxf(m, s[j]);
-      }
-    }
-    float l = 0.f;
-#pragma unroll
-    for (int j = 0; j < FM; ++j) {
-      if (j < F) {
-        s[j] = expf(s[j] - m);
-        l += s[j];
-      }
-    }
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int j = 0; j < FM; ++j) s[j] *= inv;
-    for (int d = 0; d < DP; d += 4) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int j = 0; j < FM; ++j) {
-        if (j < F) {
-          const float4 c = *reinterpret_cast<const float4*>(vp + j * RS + d);
-          acc.x = fmaf(s[j], c.x, acc.x);
-          acc.y = fmaf(s[j], c.y, acc.y);
-          acc.z = fmaf(s[j], c.z, acc.z);
-          acc.w = fmaf(s[j], c.w, acc.w);
-        }
-      }
-      *reinterpret_cast<float4*>(qrow + d) = acc;  // only this thread reads its q row
-    }
-  }
-  __syncthreads();
-
-  // -- store: the same coalesced pattern as the load ------------------------
-  T* ob = o + b * so.b + h * so.h;
-  for (int idx = tid; idx < rows * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int pp = r / F, f = r - pp * F, n = n0 + pp;
-    if (n < HW) ob[f * so.f + n * so.n + d] = rt::from_f<T>(Qs[pp * PS + f * RS + d]);
-  }
+template <typename T>
+__device__ __forceinline__ void st4(T* p, float4 v);
+template <>
+__device__ __forceinline__ void st4<float>(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+template <>
+__device__ __forceinline__ void st4<__nv_bfloat16>(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
-size_t smem_bytes(int F, int D) {
-  const int fm = F <= 4 ? 4 : F <= 8 ? 8 : F <= 16 ? 16 : 32;
-  const int np = kThreads / fm;
-  return sizeof(float) * 3 * size_t(np) * (size_t(F) * (((D + 3) & ~3) + kPad) + kPad);
+template <typename T>
+__device__ __forceinline__ void copy4(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+  else
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
 }
 
-struct Args {
-  const void *q, *k, *v;
-  void* o;
-  int B, F, HW, H, D;
-  const long long* st;  // 16 strides: q, k, v, o x (batch, frame, position, head)
-  float scale;
-  int frames_valid, vec;
-  cudaStream_t stream;
+template <typename T>
+__device__ __forceinline__ void cp_async4x(T* dst, const T* src, bool valid) {
+  if constexpr (sizeof(T) == 4)
+    rt::cp_async16(dst, src, valid);
+  else
+    rt::cp_async8(dst, src, valid);
+}
+
+// Where item `item` lies: its first position n0 and the offset of its
+// (batch, head) in operand `op`.
+struct Item {
+  int n0;
+  long long off[4];
 };
 
+template <int FM>
+__device__ __forceinline__ Item locate(const Params& p, int item) {
+  constexpr int NP = 32 / FM;
+  const int h = item % p.H, rest = item / p.H;
+  const int tile = rest % p.tiles, b = rest / p.tiles;
+  Item it;
+  it.n0 = tile * NP;
+#pragma unroll
+  for (int op = 0; op < 4; ++op) it.off[op] = b * p.s[op].b + h * p.s[op].h;
+  return it;
+}
+
+// The lane's walk over a stage's 32 rows x D/4 chunks, 32 chunks a step:
+// row r = p*FM + f, chunk c4; calls fn(r, c4) for each.
+template <typename Fn>
+__device__ __forceinline__ void walk_chunks(int D4, int lane, Fn fn) {
+  int r = lane / D4, c4 = lane - r * D4;
+  const int rstep = 32 / D4, cstep = 32 - rstep * D4;
+  while (r < 32) {
+    fn(r, c4);
+    r += rstep;
+    c4 += cstep;
+    if (c4 >= D4) {
+      c4 -= D4;
+      ++r;
+    }
+  }
+}
+
+// Copy the q, k and v rows of an item into a stage (asynchronously where vec).
 template <typename T, int FM>
-int launch(const Args& a) {
-  const size_t smem = smem_bytes(a.F, a.D);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(temporal_attention_kernel<T, FM>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  constexpr int NP = kThreads / FM;
-  const dim3 grid((a.HW + NP - 1) / NP, a.H, a.B);
-  const long long* s = a.st;
-  const Strides sq{s[0], s[1], s[2], s[3]}, sk{s[4], s[5], s[6], s[7]},
-      sv{s[8], s[9], s[10], s[11]}, so{s[12], s[13], s[14], s[15]};
-  temporal_attention_kernel<T, FM><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.F, a.HW, a.D, sq, sk, sv, so, a.scale, a.frames_valid, a.vec);
+__device__ __forceinline__ void load_item(const Params& p, const Item& it, T* stage, int lane) {
+  const T* src[3] = {static_cast<const T*>(p.q) + it.off[0], static_cast<const T*>(p.k) + it.off[1],
+                     static_cast<const T*>(p.v) + it.off[2]};
+  const int RS = p.RS;
+  if (p.vec) {
+    walk_chunks(p.DP >> 2, lane, [&](int r, int c4) {
+      const int f = r & (FM - 1), n = it.n0 + r / FM;
+      const bool ok = f < p.F && n < p.HW && 4 * c4 < p.D;
+#pragma unroll
+      for (int op = 0; op < 3; ++op) {
+        const T* g = ok ? src[op] + f * p.s[op].f + n * p.s[op].n + 4 * c4 : src[op];
+        cp_async4x(stage + (op * 32 + r) * RS + 4 * c4, g, ok);
+      }
+    });
+  } else {
+    for (int e = lane; e < 32 * p.DP; e += 32) {
+      const int r = e / p.DP, d = e - r * p.DP;
+      const int f = r & (FM - 1), n = it.n0 + r / FM;
+      const bool ok = f < p.F && n < p.HW && d < p.D;
+#pragma unroll
+      for (int op = 0; op < 3; ++op)
+        stage[(op * 32 + r) * RS + d] =
+            ok ? src[op][f * p.s[op].f + n * p.s[op].n + d] : rt::from_f<T>(0.f);
+    }
+  }
+}
+
+// Lane (position pp, half h, r) takes query rows r and r + FM/2 of its
+// position over half h of the head dim: each k and v element it loads from
+// shared memory feeds both rows, and one xor shuffle adds the two halves of
+// each score.  Its output rows (its half) go over the same q rows.
+template <typename T, int FM>
+__device__ __forceinline__ void attend(const Params& p, const Item& it, T* stage, int lane) {
+  constexpr int HALF = FM / 2;
+  const int pp = lane / FM, h = (lane / HALF) & 1, r = lane & (HALF - 1);
+  const int RS = p.RS, DH = p.DP >> 1;
+  T* q0 = stage + (pp * FM + r) * RS + h * DH;
+  T* q1 = q0 + HALF * RS;
+  const T* kp = stage + (32 + pp * FM) * RS + h * DH;
+  const T* vp = stage + (64 + pp * FM) * RS + h * DH;
+  // Every row of the stage is defined (rows past F and positions past HW are
+  // zero-filled, and never stored), so no lane leaves early, the shuffles
+  // see the whole warp, and the loops over keys run all FM rows unguarded:
+  // their shared-memory loads go out back to back.  Keys past F, like keys at
+  // or past frames_valid, score -1e30 and weigh exactly 0.
+  float s0[FM], s1[FM];
+#pragma unroll
+  for (int j = 0; j < FM; ++j) s0[j] = s1[j] = 0.f;
+  for (int d = 0; d < DH; d += 4) {
+    const float4 a = ld4(q0 + d), b = ld4(q1 + d);
+#pragma unroll
+    for (int j = 0; j < FM; ++j) {
+      const float4 c = ld4(kp + j * RS + d);
+      s0[j] = fmaf(a.x, c.x, fmaf(a.y, c.y, fmaf(a.z, c.z, fmaf(a.w, c.w, s0[j]))));
+      s1[j] = fmaf(b.x, c.x, fmaf(b.y, c.y, fmaf(b.z, c.z, fmaf(b.w, c.w, s1[j]))));
+    }
+  }
+  const int valid = min(p.F, p.frames_valid);
+  float m0 = rt::kNegInf, m1 = rt::kNegInf;
+#pragma unroll
+  for (int j = 0; j < FM; ++j) {
+    // both halves: the same two addends, so the same bits in both lanes
+    s0[j] += __shfl_xor_sync(0xffffffffu, s0[j], HALF);
+    s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], HALF);
+    s0[j] = j < valid ? s0[j] * p.scale : rt::kNegInf;
+    s1[j] = j < valid ? s1[j] * p.scale : rt::kNegInf;
+    m0 = fmaxf(m0, s0[j]);
+    m1 = fmaxf(m1, s1[j]);
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < FM; ++j) {
+    s0[j] = expf(s0[j] - m0);
+    s1[j] = expf(s1[j] - m1);
+    l0 += s0[j];
+    l1 += s1[j];
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int j = 0; j < FM; ++j) {
+    s0[j] *= inv0;
+    s1[j] *= inv1;
+  }
+  for (int d = 0; d < DH; d += 4) {
+    float4 o0 = make_float4(0.f, 0.f, 0.f, 0.f), o1 = o0;
+#pragma unroll
+    for (int j = 0; j < FM; ++j) {
+      const float4 c = ld4(vp + j * RS + d);
+      o0.x = fmaf(s0[j], c.x, o0.x);
+      o0.y = fmaf(s0[j], c.y, o0.y);
+      o0.z = fmaf(s0[j], c.z, o0.z);
+      o0.w = fmaf(s0[j], c.w, o0.w);
+      o1.x = fmaf(s1[j], c.x, o1.x);
+      o1.y = fmaf(s1[j], c.y, o1.y);
+      o1.z = fmaf(s1[j], c.z, o1.z);
+      o1.w = fmaf(s1[j], c.w, o1.w);
+    }
+    st4(q0 + d, o0);  // only this lane reads these q elements
+    st4(q1 + d, o1);
+  }
+}
+
+template <typename T, int FM>
+__device__ __forceinline__ void store_item(const Params& p, const Item& it, const T* stage,
+                                           int lane) {
+  T* dst = static_cast<T*>(p.o) + it.off[3];
+  const Strides so = p.s[3];
+  if (p.vec) {
+    walk_chunks(p.D >> 2, lane, [&](int r, int c4) {
+      const int f = r & (FM - 1), n = it.n0 + r / FM;
+      if (f < p.F && n < p.HW) copy4(dst + f * so.f + n * so.n + 4 * c4, stage + r * p.RS + 4 * c4);
+    });
+  } else {
+    for (int e = lane; e < 32 * p.D; e += 32) {
+      const int r = e / p.D, d = e - r * p.D;
+      const int f = r & (FM - 1), n = it.n0 + r / FM;
+      if (f < p.F && n < p.HW) dst[f * so.f + n * so.n + d] = stage[r * p.RS + d];
+    }
+  }
+}
+
+template <typename T, int FM>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+temporal_attention_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // The warp index through a shuffle from lane 0: the compiler then knows it
+  // (and so each warp's item loop) is the same on every lane, and compiles
+  // the score shuffles as plain SHFL rather than a divergence-safe loop.
+  const int lane = threadIdx.x & 31, warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int warps = blockDim.x >> 5;
+  const int stride = gridDim.x * warps;  // warps in the grid
+  int item = blockIdx.x * warps + warp;
+  if (item >= p.items) return;
+  const int stage_elems = 3 * 32 * p.RS;
+  T* ring = reinterpret_cast<T*>(smem) + static_cast<size_t>(warp) * kStages * stage_elems;
+
+  Item cur = locate<FM>(p, item);
+  load_item<T, FM>(p, cur, ring, lane);
+  rt::cp_async_commit();
+  for (int s = 0; item < p.items; item += stride, s ^= 1) {
+    T* stage = ring + s * stage_elems;
+    const int next = item + stride;
+    Item nxt = cur;
+    if (next < p.items) {  // the next item's copies fly while this one computes
+      nxt = locate<FM>(p, next);
+      load_item<T, FM>(p, nxt, ring + (s ^ 1) * stage_elems, lane);
+    }
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();  // this item's copies have landed
+    __syncwarp();
+    attend<T, FM>(p, cur, stage, lane);
+    __syncwarp();
+    store_item<T, FM>(p, cur, stage, lane);
+    __syncwarp();  // the stage is free for the item after next
+    cur = nxt;
+  }
+  rt::cp_async_wait<0>();
+}
+
+template <typename T, int FM>
+int launch(const Params& p, int warps, int blocks, int smem, cudaStream_t stream) {
+  auto kern = temporal_attention_kernel<T, FM>;
+  static int smem_set = -1;  // the opt-in above 48 KB, raised once per size
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = smem;
+  }
+  kern<<<blocks, 32 * warps, smem, stream>>>(p);
   return 0;
 }
 
-// Frame counts are rounded up to the next instantiated power of two (FM).
 template <typename T>
-int dispatch(const Args& a) {
-  if (a.F <= 4) return launch<T, 4>(a);
-  if (a.F <= 8) return launch<T, 8>(a);
-  if (a.F <= 16) return launch<T, 16>(a);
-  if (a.F <= kMaxFrames) return launch<T, 32>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+int dispatch(const Params& p, int fm, int warps, int blocks, int smem, cudaStream_t st) {
+  switch (fm) {
+    case 4: return launch<T, 4>(p, warps, blocks, smem, st);
+    case 8: return launch<T, 8>(p, warps, blocks, smem, st);
+    case 16: return launch<T, 16>(p, warps, blocks, smem, st);
+    default: return launch<T, 32>(p, warps, blocks, smem, st);
+  }
 }
 
 }  // namespace
 
-// Shared memory one launch needs: the wrapper raises before launching when
-// it exceeds the card's 227 KB (F <= 32 and D <= 256 keep it in an int).
-extern "C" int rt_temporal_attention_smem(int F, int D) {
-  return static_cast<int>(smem_bytes(F, D));
-}
-
+// The plan's fields (flash_attention.py::temporal_plan) come in as arguments:
+// frames rounded up to a power of two, the row stride in elements, warps per
+// block, blocks, and the shared-memory bytes of a block.
 extern "C" int rt_temporal_attention(const void* q, const void* k, const void* v, void* o,
                                      int B, int F, int HW, int H, int D, const void* strides,
-                                     float scale, int frames_valid, int vec, int dtype,
-                                     void* stream) {
-  const Args a{q, k, v, o, B, F, HW, H, D, static_cast<const long long*>(strides), scale,
-               frames_valid, vec, static_cast<cudaStream_t>(stream)};
-  const int bad = dtype == rt::kF32 ? dispatch<float>(a) : dispatch<__nv_bfloat16>(a);
+                                     float scale, int frames_valid, int vec, int fm, int rs,
+                                     int warps, int blocks, int smem, int dtype, void* stream) {
+  const int dp = (D + 7) & ~7;
+  const size_t elem = dtype == rt::kF32 ? 4 : 2;
+  if ((fm != 4 && fm != 8 && fm != 16 && fm != 32) || F > fm || F > kMaxFrames || D > 256 ||
+      rs < dp || rs % 4 || warps < 1 || warps > kMaxWarps || blocks < 1 ||
+      static_cast<size_t>(smem) < size_t(warps) * kStages * 3 * 32 * rs * elem || smem > 232448 ||
+      (vec && D % 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long* st = static_cast<const long long*>(strides);
+  Params p{q, k, v, o, F, HW, H, D, dp, rs, 0, 0, {}, scale, frames_valid, vec};
+  p.tiles = (HW + 32 / fm - 1) / (32 / fm);
+  p.items = B * H * p.tiles;
+  for (int op = 0; op < 4; ++op)
+    p.s[op] = Strides{st[4 * op], st[4 * op + 1], st[4 * op + 2], st[4 * op + 3]};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int bad = dtype == rt::kF32 ? dispatch<float>(p, fm, warps, blocks, smem, s)
+                                    : dispatch<__nv_bfloat16>(p, fm, warps, blocks, smem, s);
   if (bad) return bad;
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,14 +7,17 @@ It reads ``(B, S, H, D)`` operands through their strides, so the TPU
 wrapper's transpose to ``(B, H, S, D)`` and padding to block multiples have
 no counterpart here.  ``temporal_flash_attention`` is the port of
 ``temporal_flash_attention`` there: attention across the frames of
-``(B, F, HW, H, D)`` operands, read and written in that layout.  A CUDA
-tensor launches the hand-written kernel; a CPU tensor takes the plain
-version (``ref.attention_ref`` / ``ref.temporal_attention_ref``).
+``(B, F, HW, H, D)`` operands, read and written in that layout, launched
+as ``temporal_plan`` gives.  A CUDA tensor launches the hand-written
+kernel; a CPU tensor takes the plain version (``ref.attention_ref`` /
+``ref.temporal_attention_ref``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,11 +28,50 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 6 + [_P, ctypes.c_float] + [_I] * 4 + [_P]
 
-_TEMPORAL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P, ctypes.c_float] + [_I] * 3 + [_P]
+_TEMPORAL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P, ctypes.c_float] + [_I] * 8 + [_P]
 
 MAX_HEAD_DIM = 256
 MAX_FRAMES = 32  # csrc/temporal_attention.cu kMaxFrames
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# csrc/temporal_attention.cu: each warp's ring of q/k/v stages, and at most
+# this many warps a block.
+TEMPORAL_STAGES = 2
+TEMPORAL_WARPS = 4
+
+
+class TemporalPlan(NamedTuple):
+    frames: int  # F rounded up to a power of two: lanes per position
+    positions: int  # positions per work item (32 / frames): one item a warp
+    row_stride: int  # elements per staged row, = 4 (mod 8)
+    warps: int  # warps per block
+    stages: int
+    smem: int  # bytes of dynamic shared memory per block
+    items: int  # B * H * ceil(HW / positions)
+    blocks: int
+    items_per_warp: int  # the most any warp takes
+
+
+@functools.lru_cache(maxsize=None)
+def temporal_plan(B: int, F: int, HW: int, H: int, D: int, elem_bytes: int) -> TemporalPlan:
+    """The launch of one temporal attention call (F <= 32).
+
+    A work item is one warp's ``positions`` spatial positions of one (head,
+    batch); each warp keeps ``stages`` items of q, k and v rows (3 x 32 rows
+    of ``row_stride`` elements each) in shared memory.  A block takes
+    ``TEMPORAL_WARPS`` warps where their rings fit its shared memory, and the
+    grid is as many blocks as fit on the card at once (``build.SM_SMEM`` and
+    64 warps a SM), or fewer where there are fewer items; each warp then
+    walks the items ``warp, warp + all warps, ...``."""
+    frames = next(m for m in (4, 8, 16, 32) if F <= m)
+    positions = 32 // frames
+    row_stride = -(-D // 8) * 8 + 4  # D padded to 8 (two halves of 4s), = 4 (mod 8)
+    warp_bytes = TEMPORAL_STAGES * 3 * 32 * row_stride * elem_bytes
+    warps = max(1, min(TEMPORAL_WARPS, build.SMEM_LIMIT // warp_bytes))
+    smem = warps * warp_bytes
+    items = B * H * -(-HW // positions)
+    per_sm = max(1, min(build.SM_SMEM // (smem + 1024), 64 // warps))
+    blocks = min(-(-items // warps), build.SMS * per_sm)
+    return TemporalPlan(frames, positions, row_stride, warps, TEMPORAL_STAGES, smem, items,
+                        blocks, -(-items // (blocks * warps)))
 
 
 def flash_attention(
@@ -102,22 +144,22 @@ def temporal_flash_attention(
                          f"head dim {MAX_HEAD_DIM}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("temporal attention needs a unit stride on the head dim")
-    smem = build.function("rt_temporal_attention_smem", [_I, _I])(F, D)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"F={F}, D={D} needs {smem} bytes of shared memory, more than "
-                         f"{SMEM_LIMIT}")
+    p = temporal_plan(B, F, HW, H, D, q.element_size())
+    if p.smem > build.SMEM_LIMIT:
+        raise ValueError(f"F={F}, D={D} needs {p.smem} bytes of shared memory, more than "
+                         f"{build.SMEM_LIMIT}")
     out = torch.empty((B, F, HW, H, D), dtype=q.dtype, device=dev)
     tensors = (q, k, v, out)
     strides = [s for t in tensors for s in t.stride()[:4]]
-    # 16-byte fp32 / 8-byte bf16 row loads need aligned rows
+    # 16-byte fp32 / 8-byte bf16 row copies need aligned rows
     align = 4 * q.element_size()
     vec = D % 4 == 0 and all(s % 4 == 0 for s in strides) and all(
         t.data_ptr() % align == 0 for t in tensors)
     fn = build.function("rt_temporal_attention", _TEMPORAL_ARGTYPES)
     st = (ctypes.c_longlong * 16)(*strides)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, F, HW, H, D,
-             ctypes.addressof(st), float(scale), fv, int(vec), build.DTYPE_CODES[q.dtype],
-             build.stream(dev))
+             ctypes.addressof(st), float(scale), fv, int(vec), p.frames, p.row_stride,
+             p.warps, p.blocks, p.smem, build.DTYPE_CODES[q.dtype], build.stream(dev))
     build.check_error(err, "temporal_flash_attention")
     build.launches["temporal_flash_attention"] += 1
     return out

@@ -90,12 +90,12 @@ def test_plan_fills_the_card_at_every_main_path_conv(conv_calls, cfg):
         bm, bn, splits = kernel.plan(B, OH, OW, C_out, R)
         assert (bm, bn) in kernel.TILES
         blocks = _blocks(B, OH, OW, C_out, bm, bn)
-        full = any(_blocks(B, OH, OW, C_out, *t) >= kernel.SMS for t in kernel.TILES
+        full = any(_blocks(B, OH, OW, C_out, *t) >= build.SMS for t in kernel.TILES
                    if (t[1] == 16) == (C_out <= 16))
         if full:  # a tile already fills the card: the reduction stays whole
             assert splits == 1, (B, OH, OW, C_out, R)
         else:  # split-K brings the grid to at least one wave
-            assert splits > 1 and blocks * splits >= kernel.SMS, (B, OH, OW, C_out, R)
+            assert splits > 1 and blocks * splits >= build.SMS, (B, OH, OW, C_out, R)
         got = kernel.slices(R, splits)
         assert len(got) == splits
         assert got[0][0] == 0 and got[-1][1] == R
@@ -124,7 +124,7 @@ def test_plan_fills_the_card_unsplit_at_every_temporal_conv(conv_calls):
         bm, bn, splits = kernel.plan(B, F, N, C_out, R)
         assert (bm, bn, splits) == (128, 128, 1)
         blocks.append(_blocks(B, F, N, C_out, bm, bn))
-    assert sorted(blocks) == [160, 640, 1280] and min(blocks) >= kernel.SMS
+    assert sorted(blocks) == [160, 640, 1280] and min(blocks) >= build.SMS
 
 
 def test_card_test_shapes_reach_every_tile_split_and_unsplit():

@@ -134,6 +134,28 @@ def _attn_inputs(case, seed=0):
 
 # (F, HW) of the reference's sweep (tests/test_kernels.py), q (2, F, HW, 4, 32)
 TATTN_CASES = [(4, 64), (8, 100), (16, 32)]
+# (B, N, C, groups) of the GroupNorm card tests
+GN_CARD_SHAPES = [
+    (2, 100, 64, 8), (2, 4096, 320, 32), (2, 64, 1280, 32),
+    # Make-A-Video's three calls: clusters of 8, 4 and 1 blocks
+    (32, 1024, 640, 32), (32, 256, 1280, 32), (32, 64, 1280, 32),
+    (3, 1001, 320, 32),    # C = 320 (40-byte groups) with a ragged N
+    (2, 7, 96, 32),        # N < 8: a cluster of 7 one-row blocks; 3-channel groups
+    (1, 65536, 320, 32),   # rows past the cluster's shared memory: the re-read plan
+    (2, 50, 27, 9),        # no chunk of whole groups is 4 channels wide: scalar loads
+]
+# ((B, F, HW, H, D), frames_valid) of the temporal attention card tests
+TATTN_CARD_CASES = [
+    ((2, 4, 64, 4, 32), None), ((2, 8, 100, 4, 32), None), ((2, 16, 32, 4, 32), None),
+    ((2, 16, 37, 3, 64), None),   # F=16, D=64 as at full width; ragged spatial tail
+    ((1, 16, 50, 2, 64), 11),     # frames_valid < F
+    ((1, 5, 13, 2, 6), 3),        # odd F and a head dim that is no multiple of 4
+    ((1, 32, 9, 1, 64), None),    # the frame limit
+    ((2, 16, 1024, 10, 64), None),  # Make-A-Video's largest call, full width
+    ((2, 16, 64, 20, 64), None),    # and its smallest: 1280 items on 528 warps
+    ((1, 16, 8, 2, 64), None),      # 8 work items, fewer than the card's SMs
+    ((1, 32, 9, 1, 256), 30),       # the largest head dim: one warp a block
+]
 # (F, H, W, C) of the reference's sweep; w (3, C, C)
 TCONV_CASES = [(4, 8, 8, 8), (5, 7, 9, 6), (16, 4, 4, 12)]
 
@@ -287,7 +309,7 @@ def test_attention_cuda_main_path_shape(h100):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("silu", [True, False])
-@pytest.mark.parametrize("shape", [(2, 100, 64, 8), (2, 4096, 320, 32), (2, 64, 1280, 32)])
+@pytest.mark.parametrize("shape", GN_CARD_SHAPES, ids=lambda c: "x".join(map(str, c)))
 def test_groupnorm_cuda_matches_plain(h100, shape, silu, dtype):
     from repro_torch.kernels.groupnorm_silu import groupnorm_silu as kernel
 
@@ -297,20 +319,44 @@ def test_groupnorm_cuda_matches_plain(h100, shape, silu, dtype):
     (xt,) = _on(h100, dtype, x)
     s, b = _on(h100, torch.float32, (rng.standard_normal(C) * 0.5 + 1).astype(np.float32),
                (rng.standard_normal(C) * 0.1).astype(np.float32))
+    n = build.launches["groupnorm_silu"]
     out = kernel.groupnorm_silu(xt, s, b, groups=G, silu=silu)
+    assert build.launches["groupnorm_silu"] == n + 1
     gold = t_gn_ref.groupnorm_silu_ref(xt, s, b, groups=G, silu=silu)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
 
 
 @pytest.mark.gpu
+def test_groupnorm_cuda_plans_of_the_card_cases(h100):
+    """The cases above reach the kernel's cached and re-read plans, both
+    vector widths, and clusters of 8 and of fewer blocks."""
+    from repro_torch.kernels.groupnorm_silu import groupnorm_silu as kernel
+
+    plans = {s: kernel.plan(*s, 4) for s in
+             [(1, 65536, 320, 32), (2, 50, 27, 9), (2, 7, 96, 32), (2, 4096, 320, 32)]}
+    assert not plans[(1, 65536, 320, 32)].cached and plans[(2, 4096, 320, 32)].cached
+    assert plans[(2, 50, 27, 9)].vec == 1 and plans[(2, 4096, 320, 32)].vec == 4
+    assert plans[(2, 7, 96, 32)].cluster == 7 and plans[(2, 4096, 320, 32)].cluster == 8
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape,frames_valid", [
-    ((2, 4, 64, 4, 32), None), ((2, 8, 100, 4, 32), None), ((2, 16, 32, 4, 32), None),
-    ((2, 16, 37, 3, 64), None),   # F=16, D=64 as at full width; ragged spatial tail
-    ((1, 16, 50, 2, 64), 11),     # frames_valid < F
-    ((1, 5, 13, 2, 6), 3),        # odd F and a head dim that is no multiple of 4
-    ((1, 32, 9, 1, 64), None),    # the frame limit
-], ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else f"fv{c}")
+def test_groupnorm_cuda_two_launches_give_identical_bits(h100, dtype):
+    """Every sum is taken in a fixed order: no atomics, no race."""
+    from repro_torch.kernels.groupnorm_silu import groupnorm_silu as kernel
+
+    rng = np.random.default_rng(17)
+    (xt,) = _on(h100, dtype, (rng.standard_normal((32, 1024, 640)) * 3 + 1).astype(np.float32))
+    s, b = _on(h100, torch.float32, rng.standard_normal(640).astype(np.float32),
+               rng.standard_normal(640).astype(np.float32))
+    first = kernel.groupnorm_silu(xt, s, b, groups=32, silu=False)
+    assert torch.equal(first, kernel.groupnorm_silu(xt, s, b, groups=32, silu=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,frames_valid", TATTN_CARD_CASES,
+                         ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else f"fv{c}")
 def test_temporal_attention_cuda_matches_plain(h100, shape, frames_valid, dtype):
     from repro_torch.kernels.flash_attention import flash_attention as kernel
 
@@ -321,6 +367,16 @@ def test_temporal_attention_cuda_matches_plain(h100, shape, frames_valid, dtype)
     assert build.launches["temporal_flash_attention"] == n + 1
     gold = t_fa_ref.temporal_attention_ref(q, k, v, **kw)
     _close(out.cpu(), gold.cpu(), TEMPORAL_F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_temporal_attention_cuda_two_launches_give_identical_bits(h100, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_tattn_inputs((2, 16, 256, 20, 64), seed=18))
+    first = kernel.temporal_flash_attention(q, k, v, scale=0.125)
+    assert torch.equal(first, kernel.temporal_flash_attention(q, k, v, scale=0.125))
 
 
 @pytest.mark.gpu
