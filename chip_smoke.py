@@ -2,20 +2,27 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Two paths, each at full published width with random weights from a seed:
-Stable Diffusion text-to-image (2 requests, 512x512, 50 DDIM steps; three
-kernels) and Make-A-Video text-to-video (2 requests, 16 frames of
-64x64x4, 50 DDIM steps = 25 keyframe + 25 temporal; all five kernels).
-Phases 3-7 run for Stable Diffusion, then for Make-A-Video; each passes or
-raises, and nothing is caught:
+Four paths, each at full published width with random weights from a seed,
+2 requests each:
+
+  - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
+  - Make-A-Video text-to-video (16 frames of 64x64x4, 50 DDIM steps = 25
+    keyframe + 25 temporal; all five kernels);
+  - Imagen's pixel cascade (64 px base, 64 steps, then SR to 256 px and to
+    1024 px, 20 steps each; three kernels);
+  - prod-image, latent text-to-image (768x768, 50 steps; three kernels).
+
+Phases 3-7 run for each path in turn; each passes or raises, and nothing is
+caught:
 
   1. device   -- the card's name, count and power limit; capability (9, 0)
   2. build    -- compile the hand-written CUDA kernels from csrc/ (nvcc);
                  the SASS of the flash-attention and conv GEMM kernels
                  must hold TF32 tensor-core MMAs (cuobjdump)
   3. record   -- full-width weights from a seed; one generate pass with one
-                 step per denoise stage records every distinct call each
-                 kernel wrapper gets on the path, by stage
+                 step per denoise stage (SR stages included) records every
+                 distinct call each kernel wrapper gets on the path, by
+                 stage; inputs over 64 MiB are kept on the host
   4. kernels  -- each recorded call replayed: the CUDA kernel against its
                  plain PyTorch version on the same inputs, in fp32 and bf16,
                  timed beside the plain version, one library call and the
@@ -23,8 +30,10 @@ raises, and nothing is caught:
                  two times: ``ms``, back-to-back wrapper calls (host launch
                  cost included), and ``device_ms``, its launches captured in
                  a CUDA graph and replayed (the card's time alone)
-  5. unet     -- one full-width UNet (VideoUNet) step on the kernel tier
-                 against the torch tier, same weights and latent
+  5. unet     -- one full-width step of each denoising network of the path
+                 (UNet, VideoUNet, each SR UNet on its 6-channel [z, up]
+                 input) on the kernel tier against the torch tier, same
+                 weights and input
   6. main     -- the path: ``workload_for(cfg)``, 2 requests through
                  ``prepare_request`` and ``generate``, with every kernel's
                  launch count set to 0 just before and read just after; the
@@ -32,8 +41,9 @@ raises, and nothing is caught:
   7. small    -- the reduced config's generate on the card against the CPU
                  plain path
 
-It prints a ``{"kernels": [...]}`` line (each kernel's launches and times
-summed over both paths' main runs), the card's name and power limit, and,
+Each phase logs its wall time and the peak device memory it reached.  It
+prints a ``{"kernels": [...]}`` line (each kernel's launches and times
+summed over all paths' main runs), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Per-call details go to
 ``build/chip_smoke/``.  Without a CUDA device it exits non-zero and prints
 no result.
@@ -90,17 +100,20 @@ def log(*a):
 
 
 class phase:
-    """Logs the wall time of a block: ``with phase("sd", "kernels"): ...``."""
+    """Logs the wall time of a block and the peak device memory allocated in
+    it: ``with phase("sd", "kernels"): ...``."""
 
     def __init__(self, path: str, name: str):
         self.label = f"{path} {name}"
 
     def __enter__(self):
+        torch.cuda.reset_peak_memory_stats()
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         if exc[0] is None:
-            log(f"[phase] {self.label}: {time.perf_counter() - self.t0:.1f} s")
+            log(f"[phase] {self.label}: {time.perf_counter() - self.t0:.1f} s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 def nvidia_smi() -> str:
@@ -213,6 +226,23 @@ def _sig(v):
     return v
 
 
+HOST_BYTES = 1 << 26  # recorded inputs larger than this wait on the host
+
+
+def _keep(v):
+    """A recorded input: a clone, on the host if it is large (Imagen's
+    1024 px level records tens of GiB of inputs)."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    if v.numel() * v.element_size() > HOST_BYTES:
+        return v.to("cpu", copy=True)
+    return v.clone()
+
+
+def _on_card(v):
+    return v.to("cuda") if isinstance(v, torch.Tensor) else v
+
+
 class Recorder:
     """Wraps the kernel wrappers; keeps the first call of each distinct
     signature (inputs cloned) and how often each stage made it."""
@@ -225,9 +255,8 @@ class Recorder:
         def recorded(*args, **kw):
             key = (name, tuple(map(_sig, args)), tuple((k, _sig(v)) for k, v in sorted(kw.items())))
             if key not in self.calls:
-                clone = lambda v: v.clone() if isinstance(v, torch.Tensor) else v  # noqa: E731
-                self.calls[key] = dict(name=name, args=[clone(a) for a in args],
-                                       kw={k: clone(v) for k, v in kw.items()},
+                self.calls[key] = dict(name=name, args=[_keep(a) for a in args],
+                                       kw={k: _keep(v) for k, v in kw.items()},
                                        counts=collections.Counter())
             self.calls[key]["counts"][self.stage] += 1
             return fn(*args, **kw)
@@ -450,7 +479,8 @@ def check_kernels(rec, stage_steps):
     rows = []
     for call in rec.calls.values():
         weight = sum(n * stage_steps[st] for st, n in call["counts"].items())
-        case = CASES[call["name"]](call["args"], call["kw"])
+        case = CASES[call["name"]]([_on_card(a) for a in call["args"]],
+                                   {k: _on_card(v) for k, v in call["kw"].items()})
         label = f"{call['name']} {case['shape']}"
         err = _compare(label, case, case["kernel"](), case["plain"](), case["tol"])
         bf = case["to_bf16"]()
@@ -531,19 +561,34 @@ def summarize(paths):
 # ---------------------------------------------------------------------------
 
 
-def denoiser(model, cfg):
-    """The path's denoising network and the shape of its (B=2) input."""
+def denoisers(model, cfg) -> list:
+    """``(name, network, shape of its B=2 input)`` of every denoising network
+    of the path: the base UNet (or VideoUNet), then each SR UNet, whose
+    input is ``[z, up]`` at its stage's output size."""
     if hasattr(model, "vunet"):  # Make-A-Video: (B, F, H, W, C) video latents
         hw = cfg.image_size // cfg.latent_down
-        return model.vunet, (2, cfg.frames, hw, hw, cfg.unet.in_channels)
-    return model.unet, (2, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels)
+        return [("vunet", model.vunet, (2, cfg.frames, hw, hw, cfg.unet.in_channels))]
+    return [("unet", model.unet, (2, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels))] + [
+        (f"sr{i}", unet, (2, s.out_size, s.out_size, s.unet.in_channels))
+        for i, (s, unet) in enumerate(zip(cfg.sr_stages, model.sr_unets))]
 
 
 def output_shape(cfg):
     if hasattr(cfg, "frames"):
         hw = cfg.image_size // cfg.latent_down
         return (2, cfg.frames, hw, hw, cfg.unet.in_channels)
-    return (2, cfg.image_size, cfg.image_size, 3)
+    size = cfg.sr_stages[-1].out_size if cfg.sr_stages else cfg.image_size
+    return (2, size, size, 3)
+
+
+def record_config(cfg, record_steps: int):
+    """``cfg`` with ``record_steps`` denoise steps and one step per SR stage:
+    one step of every stage's network."""
+    cfg = dataclasses.replace(cfg, denoise_steps=record_steps)
+    if getattr(cfg, "sr_stages", ()):
+        cfg = dataclasses.replace(cfg, sr_stages=tuple(
+            dataclasses.replace(s, steps=1) for s in cfg.sr_stages))
+    return cfg
 
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> dict:
@@ -565,8 +610,9 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         rng = torch.Generator().manual_seed(SEED)
         tokens = [torch.randint(0, cfg.text.vocab, (cfg.text.max_len,), generator=rng).numpy()
                   for _ in range(2)]
-        # one step per denoise stage (SD: 1; Make-A-Video: 1 keyframe + 1 temporal)
-        wl_rec = workload_for(dataclasses.replace(cfg, denoise_steps=record_steps))
+        # one step per denoise stage (SD: 1; Make-A-Video: 1 keyframe + 1
+        # temporal; Imagen: 1 base + 1 per SR stage)
+        wl_rec = workload_for(record_config(cfg, record_steps))
         rec = record_main_path(wl_rec, model, tokens, SEED)
         log(f"[record] {cfg.name}: {len(rec.calls)} distinct kernel calls in stages "
             f"{sorted({st for c in rec.calls.values() for st in c['counts']})}")
@@ -579,30 +625,34 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         (OUT_DIR / f"kernel_calls_{cfg.name}.json").write_text(
             json.dumps(dict(device=smi, rows=rows), indent=1))
 
-    # -- 5. one full-width UNet step, kernel tier vs torch tier --------------------
+    # -- 5. one full-width step of each denoising network, kernel vs torch tier ----
     with phase(cfg.name, "unet step"):
-        net, x_shape = denoiser(model, cfg)
         g = torch.Generator(device="cuda").manual_seed(SEED)
+        unet_ms, unet_err = {}, {}
         with torch.inference_mode():
             ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
-            z = torch.randn(x_shape, generator=g, device="cuda")
             t = torch.tensor([999.0, 499.0], device="cuda")
-            step = {}
-            for impl in ("kernel", "torch"):
-                step[impl] = net(z, t, ctx, impl=impl)
-                step[impl + "_ms"] = time_ms(lambda: net(z, t, ctx, impl=impl),
-                                             min_total_ms=0, max_reps=3)
-        unet_err = max_err(step["kernel"], step["torch"])
-        unet_ms = {impl: step[impl + "_ms"] for impl in ("kernel", "torch")}
-        scale = step["torch"].abs().max().item()
-        log(f"[unet] {cfg.name} full-width {type(net).__name__} step, input {x_shape}: kernel "
-            f"tier {step['kernel_ms']:.1f} ms, torch tier {step['torch_ms']:.1f} ms; max abs "
-            f"diff {unet_err:.3e} (max |out| {scale:.3e})")
-        # 60+ chained layers, each agreeing to the kernel tolerances above
-        if not (torch.isfinite(step["kernel"]).all() and unet_err <= 1e-3 * max(1.0, scale)):
-            raise AssertionError(f"{cfg.name}: kernel tier disagrees with the torch tier: "
-                                 f"{unet_err}")
-        del step, ctx, z
+            for name, net, x_shape in denoisers(model, cfg):
+                z = torch.randn(x_shape, generator=g, device="cuda")
+                step = {}
+                for impl in ("kernel", "torch"):
+                    step[impl] = net(z, t, ctx, impl=impl)
+                    step[impl + "_ms"] = time_ms(lambda: net(z, t, ctx, impl=impl),
+                                                 min_total_ms=0, max_reps=3)
+                err = max_err(step["kernel"], step["torch"])
+                unet_ms[name] = {impl: step[impl + "_ms"] for impl in ("kernel", "torch")}
+                unet_err[name] = err
+                scale = step["torch"].abs().max().item()
+                log(f"[unet] {cfg.name} full-width {name} ({type(net).__name__}) step, input "
+                    f"{x_shape}: kernel tier {step['kernel_ms']:.1f} ms, torch tier "
+                    f"{step['torch_ms']:.1f} ms; max abs diff {err:.3e} (max |out| {scale:.3e})")
+                # 60+ chained layers, each agreeing to the kernel tolerances above
+                if not (torch.isfinite(step["kernel"]).all() and err <= 1e-3 * max(1.0, scale)):
+                    raise AssertionError(f"{cfg.name} {name}: kernel tier disagrees with the "
+                                         f"torch tier: {err}")
+                del step, z
+                torch.cuda.empty_cache()
+        del ctx
 
     # -- 6. main path ---------------------------------------------------------
     with phase(cfg.name, "main"):
@@ -685,7 +735,7 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"needs an sm_90 (Hopper) card, got capability {cap}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.suite import MAKE_A_VIDEO, STABLE_DIFFUSION
+    from repro_torch.configs.suite import IMAGEN, MAKE_A_VIDEO, PROD_IMAGE, STABLE_DIFFUSION
     from repro_torch.kernels import build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -705,15 +755,20 @@ def main() -> int:
 
     # -- 3-7, per path ----------------------------------------------------------
     t_all = time.perf_counter()
+    spatial = ("conv2d", "flash_attention", "groupnorm_silu")
     paths = {
         STABLE_DIFFUSION.name: run_path(
-            STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi,
-            kernels=("conv2d", "flash_attention", "groupnorm_silu")),
+            STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi, kernels=spatial),
         MAKE_A_VIDEO.name: run_path(
             MAKE_A_VIDEO, tag="main-ttv", record_steps=2, smi=smi, kernels=tuple(SOURCES)),
+        IMAGEN.name: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi, kernels=spatial),
+        PROD_IMAGE.name: run_path(
+            PROD_IMAGE, tag="main-prod", record_steps=1, smi=smi, kernels=spatial),
     }
     kernels = summarize(paths)
-    summary = dict(device=smi, kind=kind, paths_s=time.perf_counter() - t_all, sass_mma=mma,
+    paths_s = time.perf_counter() - t_all
+    log(f"[total] {len(paths)} paths in {paths_s:.1f} s")
+    summary = dict(device=smi, kind=kind, paths_s=paths_s, sass_mma=mma,
                    paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))

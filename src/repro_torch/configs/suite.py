@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from repro_torch.configs import register
-from repro_torch.models.diffusion import DiffusionConfig
+from repro_torch.models.diffusion import DiffusionConfig, SRStage
 from repro_torch.models.text_encoder import TextEncoderConfig
 from repro_torch.models.ttv import TTVConfig
 from repro_torch.models.unet import UNetConfig
@@ -29,6 +29,71 @@ STABLE_DIFFUSION = DiffusionConfig(
     source="[arXiv:2112.10752 / paper Table I]",
 )
 register(STABLE_DIFFUSION)
+
+# Imagen (pixel; Table I: 3B, attn res [32,16,8], mult [1,2,4,4], 3 res
+# blocks, per-head channels 64, text embed 512) + 2 SR stages, the
+# reference's 64 -> 256 -> 1024 cascade.
+IMAGEN = DiffusionConfig(
+    name="imagen",
+    kind="pixel",
+    image_size=64,
+    latent_down=1,
+    unet=UNetConfig(
+        in_channels=3, out_channels=3, model_channels=512,
+        channel_mult=(1, 2, 4, 4), num_res_blocks=3, attn_levels=(1, 2, 3),
+        cross_attn=True, context_dim=512, head_channels=64,
+    ),
+    text=TextEncoderConfig(vocab=32128, max_len=128, n_layers=24, d_model=512,
+                           n_heads=8, d_ff=2048),
+    vae=None,
+    sr_stages=(
+        SRStage(
+            out_size=256,
+            unet=UNetConfig(
+                in_channels=6, out_channels=3, model_channels=128,
+                channel_mult=(1, 2, 4, 8), num_res_blocks=2, attn_levels=(3,),
+                cross_attn=True, context_dim=512, head_channels=64,
+            ),
+            steps=20,
+        ),
+        SRStage(
+            out_size=1024,
+            unet=UNetConfig(
+                in_channels=6, out_channels=3, model_channels=64,
+                channel_mult=(1, 2, 4, 8), num_res_blocks=2,
+                # no per-level attention; the mid block still attends, over
+                # the 128x128 = 16384 tokens of the lowest level
+                attn_levels=(),
+                cross_attn=False, context_dim=512, head_channels=64,
+            ),
+            steps=20,
+        ),
+    ),
+    denoise_steps=64,
+    source="[arXiv:2205.11487 / paper Table I]",
+)
+register(IMAGEN)
+
+# Prod-Image: the paper's production latent-diffusion TTI (higher-res
+# latents, a bigger text stack)
+PROD_IMAGE = DiffusionConfig(
+    name="prod-image",
+    kind="latent",
+    image_size=768,
+    latent_down=8,
+    unet=UNetConfig(
+        in_channels=8, out_channels=8, model_channels=384,
+        channel_mult=(1, 2, 4, 4), num_res_blocks=2, attn_levels=(0, 1, 2),
+        cross_attn=True, context_dim=1024, head_channels=64, n_heads=8,
+    ),
+    text=TextEncoderConfig(vocab=49408, max_len=77, n_layers=24, d_model=1024,
+                           n_heads=16, d_ff=4096),
+    vae=DecoderConfig(latent_channels=8, base_channels=128,
+                      channel_mult=(1, 2, 4, 4), num_res_blocks=2),
+    denoise_steps=50,
+    source="[production-representative latent TTI; paper §III]",
+)
+register(PROD_IMAGE)
 
 # Make-A-Video (diffusion TTV: SD-like UNet + temporal attn/conv, 16 frames)
 MAKE_A_VIDEO = TTVConfig(

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# the most bytes of fp32 scores one chunk of query rows computes at once
+SCORE_BYTES = 1 << 30
 
 
 def attention_ref(
@@ -25,6 +27,11 @@ def attention_ref(
     scale: float | None = None,
     kv_offset: int = 0,
 ) -> torch.Tensor:
+    """Softmax attention, computed over chunks of query rows whose
+    (B, H, rows, Skv) fp32 scores stay within ``SCORE_BYTES``: each row's
+    softmax is its own, so chunking leaves the function unchanged and
+    bounds its memory (at Sq = Skv = 16384, B = 2, H = 8 the whole score
+    block would be 17.2 GB)."""
     B, Sq, H, D = q.shape
     _, Skv, KVH, _ = k.shape
     if H % KVH:
@@ -35,18 +42,22 @@ def attention_ref(
     if group > 1:
         kf = kf.repeat_interleave(group, dim=2)
         vf = vf.repeat_interleave(group, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
-    if causal or window is not None:
-        rows = torch.arange(Sq, device=q.device)[:, None] + kv_offset
-        cols = torch.arange(Skv, device=q.device)[None, :]
-        ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-        if causal:
-            ok &= cols <= rows
-        if window is not None:
-            ok &= rows - cols < window
-        s = s + torch.where(ok, 0.0, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    cols = torch.arange(Skv, device=q.device)[None, :]
+    step = max(1, SCORE_BYTES // (B * H * Skv * 4))
+    out = []
+    for r0 in range(0, Sq, step):
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[:, r0:r0 + step], kf) * scale
+        if causal or window is not None:
+            rows = torch.arange(r0, min(Sq, r0 + step), device=q.device)[:, None] + kv_offset
+            ok = torch.ones((rows.shape[0], Skv), dtype=torch.bool, device=q.device)
+            if causal:
+                ok &= cols <= rows
+            if window is not None:
+                ok &= rows - cols < window
+            s = s + torch.where(ok, 0.0, NEG_INF)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vf))
+        del s
+    return (out[0] if len(out) == 1 else torch.cat(out, dim=1)).to(q.dtype)
 
 
 def temporal_attention_ref(

@@ -1,7 +1,13 @@
 """Diffusion TTI pipeline pieces, the port of ``repro.models.diffusion``:
-the DDIM schedule and the latent (Stable-Diffusion-like) pipeline: text
-encoder -> UNet denoising loop in latent space -> VAE decoder.  The loop is
-a Python loop over DDIM steps."""
+the DDIM schedule and the two pipeline variants,
+
+  * latent (Stable-Diffusion-like): text encoder -> UNet denoising loop in
+    latent space -> VAE decoder;
+  * pixel (Imagen-like): text encoder -> base UNet loop at 64x64 -> a
+    cascade of super-resolution UNets, each denoising at its output size
+    with the upsampled image of the stage before as a channel condition.
+
+The loop is a Python loop over DDIM steps."""
 
 from __future__ import annotations
 
@@ -80,29 +86,36 @@ class DiffusionConfig:
 
 
 class DiffusionPipeline(Module):
-    """Parameter tree ``{"text", "unet", "vae"}`` as in the reference.  SR
-    stages come with the pixel-cascade slice."""
+    """Parameter tree ``{"text", "unet", "vae", "sr0", "sr1", ...}`` as in
+    the reference: the VAE for latent models, one SR UNet per ``SRStage``."""
 
     def __init__(self, cfg: DiffusionConfig):
         super().__init__()
-        if cfg.sr_stages:
-            raise NotImplementedError("SR cascade stages are not ported yet")
         self.cfg = cfg
         self.text = TextEncoder(cfg.text)
         self.unet = UNet2D(cfg.unet)
         if cfg.vae is not None:
             self.vae = ConvDecoder(cfg.vae)
+        for i, s in enumerate(cfg.sr_stages):
+            self.add_module(f"sr{i}", UNet2D(s.unet))
+
+    @property
+    def sr_unets(self) -> list:
+        return [getattr(self, f"sr{i}") for i in range(len(self.cfg.sr_stages))]
 
     def encode_text(self, tokens, *, impl="auto"):
         return self.text(tokens, impl=impl)
 
-    def denoise_loop(self, unet: UNet2D, z, ctx, steps: int, *, impl="auto"):
-        """The ``steps``-long DDIM loop.  A partial schedule (the TTV
-        sampler's keyframe and temporal stages) runs through ``ddim_range``
-        directly, which resumes at any step index."""
+    def denoise_loop(self, unet: UNet2D, z, ctx, steps: int, *, cond=None, impl="auto"):
+        """The ``steps``-long DDIM loop.  ``cond`` (SR stages: the upsampled
+        low-res image) is concatenated after ``z`` on the channels at every
+        step but not denoised.  A partial schedule (the TTV sampler's
+        keyframe and temporal stages) runs through ``ddim_range`` directly,
+        which resumes at any step index."""
 
         def unet_eps(z, t):
+            inp = z if cond is None else torch.cat([z, cond], dim=-1)
             tb = torch.full((z.shape[0],), float(t), dtype=torch.float32, device=z.device)
-            return unet(z, tb, ctx, impl=impl)
+            return unet(inp, tb, ctx, impl=impl)
 
         return ddim_range(unet_eps, z, steps, 0, steps)

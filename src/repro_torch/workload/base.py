@@ -101,12 +101,14 @@ class GenRequest:
 @dataclasses.dataclass(frozen=True)
 class Stage:
     """One pipeline stage: ``steps`` executions of its graph; ``seq_len`` a
-    representative attention sequence length.  (The per-tick ``demand``
-    profile comes with the serving slice.)"""
+    representative attention sequence length; ``demand`` an optional
+    per-tick relative HBM-demand profile inside the stage (the UNet's
+    U-shape), which the serving scheduler's stagger reads."""
 
     name: str
     steps: int
     seq_len: int
+    demand: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +123,19 @@ class CostDescriptor:
 
     def iterative_steps(self) -> int:
         return max((s.steps for s in self.stages), default=1)
+
+    def step_demands(self) -> list:
+        """Relative per-tick HBM demand across the iterative stages.  Stages
+        without a profile contribute their (flat) ``seq_len``; one-shot
+        stages (text encoder, VAE) none."""
+        out: list = []
+        for s in self.stages:
+            if s.steps <= 1 and not s.demand:
+                continue
+            prof = list(s.demand) if s.demand else [s.seq_len]
+            reps = max(1, s.steps // max(len(prof), 1))
+            out += (prof * reps)[: max(s.steps, len(prof))]
+        return out or [1.0]
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,8 @@
 
 A factorized sampler over one DDIM schedule: ``keyframe_denoise`` runs the
 first half spatial-only (frames folded into the batch, no temporal layers),
-``temporal_denoise`` resumes the schedule with the VideoUNet.  The per-tick
-``demand`` profile comes with the serving slice; Phenaki with the
-transformer slice.
+``temporal_denoise`` resumes the schedule with the VideoUNet.  Phenaki comes
+with the transformer slice.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from repro_torch.workload.base import (
     register_workload,
     stage_noise,
 )
-from repro_torch.workload.diffusion import REDUCED_TEXT
+from repro_torch.workload.diffusion import REDUCED_TEXT, unet_demand
 
 
 @register_workload(TTVConfig)
@@ -43,6 +42,11 @@ class MakeAVideoWorkload(GenerativeWorkload):
             text=REDUCED_TEXT, frames=4, image_size=16, denoise_steps=2,
             temporal_head_channels=8)
 
+    # Temporal attention and conv add one q/k/v/out round trip over the
+    # spatial activations at every attention site: a flat traffic factor on
+    # the temporal stage's demand profile, as in the reference.
+    TEMPORAL_TRAFFIC = 1.5
+
     def _denoise_split(self) -> tuple[int, int]:
         """(keyframe, temporal) step counts: the first half of the schedule
         spatial-only, the rest with the temporal layers.  A 1-step schedule
@@ -56,11 +60,14 @@ class MakeAVideoWorkload(GenerativeWorkload):
     def cost_descriptor(self) -> CostDescriptor:
         cfg = self.cfg
         hw = cfg.image_size // cfg.latent_down
+        # frames fold into the batch of the spatial UNet: demand scales by F
+        spatial = tuple(d * cfg.frames for d in unet_demand(hw, cfg.unet))
+        temporal = tuple(d * self.TEMPORAL_TRAFFIC for d in spatial)
         kf, tp = self._denoise_split()
         stages = [Stage("text_encoder", 1, cfg.text.max_len)]
         if kf:
-            stages.append(Stage("keyframe_denoise", kf, cfg.frames * hw * hw))
-        stages.append(Stage("temporal_denoise", tp, cfg.frames * hw * hw))
+            stages.append(Stage("keyframe_denoise", kf, cfg.frames * hw * hw, demand=spatial))
+        stages.append(Stage("temporal_denoise", tp, cfg.frames * hw * hw, demand=temporal))
         return CostDescriptor(arch=cfg.name, route=self.route, stages=tuple(stages))
 
     def run_stage(self, params, stage, state, gens, *, impl="auto"):

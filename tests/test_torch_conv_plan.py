@@ -3,10 +3,12 @@
 ``csrc/conv2d.cu`` runs on the card only; what can be checked here is the
 Python around it:
 
-- ``conv2d.plan`` at every conv call of the two ported paths at full width,
+- ``conv2d.plan`` at every conv call of the ported paths at full width,
   found by running the full-size models on the ``meta`` device (shapes
   only, no arithmetic): the grid fills the card or is left whole, and the
-  split-K slices are whole chunks that cover the reduction exactly;
+  split-K slices are whole chunks that cover the reduction exactly; at
+  Imagen's SR shapes (up to 2 x 1024 x 1024 x 128 inputs) the grids and the
+  kernel's 32-bit counts stay within the card's limits;
 - why the kernel spends three TF32 MMAs on each fp32 product: a numpy
   emulation of TF32 rounding against a float64 product;
 - the wrapper on CPU tensors, which takes the plain version.
@@ -20,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.suite import MAKE_A_VIDEO, STABLE_DIFFUSION
+from repro_torch.configs.suite import IMAGEN, MAKE_A_VIDEO, PROD_IMAGE, STABLE_DIFFUSION
 from repro_torch.kernels import build
 from repro_torch.kernels.conv2d import conv2d as kernel
 from repro_torch.kernels.conv2d import ref as conv_ref
@@ -37,14 +39,16 @@ def conv_calls():
     """(B, OH, OW, C_out, R) -> count, for every conv2d call of one UNet
     step, one VideoUNet step and the VAE decoder at full width, per config;
     under "temporal", (B, F, N, C_out, K * C) of every temporal conv call,
-    the plan's arguments for the same GEMM kernel."""
-    calls = {"temporal": collections.Counter()}
+    the plan's arguments for the same GEMM kernel; under "x", the input
+    shapes of each config's conv2d calls."""
+    calls = {"temporal": collections.Counter(), "x": collections.defaultdict(set)}
 
     def recording(x, w, **kw):
         K, s = w.shape[0], kw.get("stride", 1)
         B, H, W, C_in = x.shape
         OH, OW = (H + 2 * (K // 2) - K) // s + 1, (W + 2 * (K // 2) - K) // s + 1
         calls[name][(B, OH, OW, w.shape[3], K * K * C_in)] += 1
+        calls["x"][name].add(tuple(x.shape))
         return conv_ref.conv2d_ref(x, w, **kw)
 
     def temporal_recording(x, w, bias):
@@ -75,6 +79,21 @@ def conv_calls():
                        torch.empty(32, 77, 768, **meta), impl="kernel")
         mav.vunet(torch.empty(2, 16, 64, 64, 4, **meta), torch.empty(2, **meta), ctx,
                   impl="kernel")
+        # Imagen: the base UNet at 64 px, then each SR UNet on [z, up]
+        name = IMAGEN.name
+        calls[name] = collections.Counter()
+        imagen = workload_for(IMAGEN).model
+        ctx = torch.empty(2, 128, 512, **meta)
+        t = torch.empty(2, **meta)
+        imagen.unet(torch.empty(2, 64, 64, 3, **meta), t, ctx, impl="kernel")
+        for s, unet in zip(IMAGEN.sr_stages, imagen.sr_unets):
+            unet(torch.empty(2, s.out_size, s.out_size, 6, **meta), t, ctx, impl="kernel")
+        name = PROD_IMAGE.name
+        calls[name] = collections.Counter()
+        prod = workload_for(PROD_IMAGE).model
+        prod.unet(torch.empty(2, 96, 96, 8, **meta), t, torch.empty(2, 77, 1024, **meta),
+                  impl="kernel")
+        prod.vae(torch.empty(2, 96, 96, 8, **meta), impl="kernel")
     return calls
 
 
@@ -125,6 +144,38 @@ def test_plan_fills_the_card_unsplit_at_every_temporal_conv(conv_calls):
         assert (bm, bn, splits) == (128, 128, 1)
         blocks.append(_blocks(B, F, N, C_out, bm, bn))
     assert sorted(blocks) == [160, 640, 1280] and min(blocks) >= build.SMS
+
+
+@pytest.mark.parametrize("cfg", [IMAGEN, PROD_IMAGE], ids=lambda c: c.name)
+def test_plan_fills_the_card_within_its_limits_at_every_cascade_conv(conv_calls, cfg):
+    """Every conv of Imagen's base and SR UNets and of prod-image's UNet and
+    VAE: a grid that fills the card (or a split that brings it to a wave),
+    no empty row tile or slice, CUDA's grid limits (x < 2^31, y and z <=
+    65535, the split-K epilogue's y = row blocks of 16 included) and the
+    kernel's 32-bit element counts (the fp32 producer's scratch copy of x)."""
+    shapes = conv_calls[cfg.name]
+    assert len(shapes) > 20
+    for (B, OH, OW, C_out, R) in shapes:
+        bm, bn, splits = kernel.plan(B, OH, OW, C_out, R)
+        assert (bm, bn) in kernel.TILES and (bn == 16) == (C_out <= 16)
+        P = OH * OW
+        m_tiles = -(-P // bm)
+        assert (m_tiles - 1) * bm < P and B * m_tiles < 2 ** 31
+        assert -(-C_out // bn) <= 65535 and splits <= 65535
+        blocks = _blocks(B, OH, OW, C_out, bm, bn)
+        assert blocks >= build.SMS or blocks * splits >= build.SMS, (B, OH, OW, C_out, R)
+        if splits > 1:
+            assert -(-P // kernel.SPLIT_ROWS) <= 65535
+        got = kernel.slices(R, splits)
+        assert len(got) == splits and got[-1][1] == R and all(a < b for a, b in got)
+    for (B, H, W, C_in) in conv_calls["x"][cfg.name]:
+        assert B * H * W * C_in < 2 ** 31
+    if cfg is IMAGEN:
+        # SR2's 1024 px level: conv_in from 6 channels, conv_out to 3, and the
+        # up path's 128-channel concat, 2^28 elements
+        assert {(2, 1024, 1024, 6), (2, 1024, 1024, 128)} <= conv_calls["x"][cfg.name]
+        assert (2, 1024, 1024, 3, 9 * 64) in shapes
+        assert kernel.plan(2, 1024, 1024, 3, 9 * 64) == (128, 16, 1)
 
 
 def test_card_test_shapes_reach_every_tile_split_and_unsplit():

@@ -156,6 +156,20 @@ TATTN_CARD_CASES = [
     ((1, 16, 8, 2, 64), None),      # 8 work items, fewer than the card's SMs
     ((1, 32, 9, 1, 256), 30),       # the largest head dim: one warp a block
 ]
+# The pixel SR cascade's new shapes (Imagen's SR UNets, prod-image's heads).
+# conv2d (B, H, W, C_in, C_out, K, stride): the SR conv_in of [z, up] (6
+# channels) and conv_out to RGB (3 channels), at 256 px: 4-byte copies of A
+# and B.
+SR_CONV_SHAPES = [(2, 256, 256, 6, 128, 3, 1), (2, 256, 256, 128, 3, 3, 1)]
+# flash attention (B, Sq, Skv, H, KVH, D, causal, window): prod-image's fixed
+# 8 heads at its three widths, Imagen's cross-attention to 128 text tokens
+SR_ATTN_CASES = [
+    (2, 144, 144, 8, 8, 48, False, None), (2, 144, 144, 8, 8, 96, False, None),
+    (2, 144, 144, 8, 8, 192, False, None), (2, 1024, 128, 16, 16, 64, False, None),
+]
+# GroupNorm (B, N, C, groups): 2 and 4 channels a group over rows that
+# overflow the cluster's shared memory (SR2's widths at 512 px)
+GN_SR_SHAPES = [(2, 262144, 64, 32), (2, 262144, 128, 32)]
 # (F, H, W, C) of the reference's sweep; w (3, C, C)
 TCONV_CASES = [(4, 8, 8, 8), (5, 7, 9, 6), (16, 4, 4, 12)]
 
@@ -426,3 +440,69 @@ def test_temporal_conv1d_cuda_counts_only_its_own_launches(h100):
     assert build.launches["conv2d"] == before.get("conv2d", 0)
     gold = t_conv_ref.temporal_conv1d_ref(xt, wt, bt)
     _close_scaled(out.reshape(gold.shape).cpu(), gold.cpu(), F32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("combo", [dict(bias=True), dict(gn=True, bias=True)],
+                         ids=lambda c: "-".join(sorted(c)))
+@pytest.mark.parametrize("shape", SR_CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv2d_cuda_sr_channel_counts_match_plain(h100, shape, combo, dtype):
+    """C_in = 6 and C_out = 3 at 256 px, with and without the GroupNorm
+    producer: the kernel's 4-byte copy paths at a grid of 1024 row tiles."""
+    from repro_torch.kernels.conv2d import conv2d as kernel
+
+    x, w, kw = _conv_case(shape, combo, seed=19)
+    tkw = {k: torch.from_numpy(v).to(h100) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    xt, wt = _on(h100, dtype, x, w)
+    n = build.launches["conv2d"]
+    out = kernel.conv2d(xt, wt, **tkw)
+    assert build.launches["conv2d"] == n + 1
+    gold = t_conv_ref.conv2d_ref(xt, wt, **tkw)
+    R = shape[5] ** 2 * shape[3]
+    widen = max(1.0, (R / 64) ** 0.5)  # as in test_conv2d_tensor_core_paths_match_plain
+    tol = ({k: v * widen for k, v in F32.items()} if dtype == torch.float32 else BF16)
+    _close_scaled(out.cpu(), gold.cpu(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", SR_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_sr_head_widths_match_plain(h100, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=20))
+    out = kernel.flash_attention(q, k, v, scale=case[5] ** -0.5)
+    gold = t_fa_ref.attention_ref(q, k, v, scale=case[5] ** -0.5)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+def test_attention_cuda_sr2_mid_block_length(h100):
+    """16384 tokens, SR2's mid-block self-attention (one batch, 8 heads of
+    64), once in fp32; the plain version computes its scores in chunks of
+    query rows."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, torch.float32, *_attn_inputs((1, 16384, 16384, 8, 8, 64), seed=21))
+    out = kernel.flash_attention(q, k, v, scale=0.125)
+    gold = t_fa_ref.attention_ref(q, k, v, scale=0.125)
+    _close(out.cpu(), gold.cpu(), F32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", GN_SR_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_groupnorm_cuda_sr_widths_re_read_their_rows(h100, shape, dtype):
+    from repro_torch.kernels.groupnorm_silu import groupnorm_silu as kernel
+
+    B, N, C, G = shape
+    assert not kernel.plan(B, N, C, G, 2 if dtype == torch.bfloat16 else 4).cached
+    rng = np.random.default_rng(22)
+    (xt,) = _on(h100, dtype, (rng.standard_normal((B, N, C)) * 3 + 1).astype(np.float32))
+    s, b = _on(h100, torch.float32, (rng.standard_normal(C) * 0.5 + 1).astype(np.float32),
+               (rng.standard_normal(C) * 0.1).astype(np.float32))
+    out = kernel.groupnorm_silu(xt, s, b, groups=G, silu=True)
+    gold = t_gn_ref.groupnorm_silu_ref(xt, s, b, groups=G, silu=True)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)

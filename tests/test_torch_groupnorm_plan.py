@@ -22,7 +22,7 @@ import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels.groupnorm_silu import groupnorm_silu as kernel
-from test_torch_cuda import F32, GN_CARD_SHAPES
+from test_torch_cuda import F32, GN_CARD_SHAPES, GN_SR_SHAPES
 
 # (B, N, C) of every GroupNorm call on the two main paths (the
 # SpatialTransformer input norms; 32 groups, no SiLU), as chip_smoke.py
@@ -115,6 +115,40 @@ def test_unaligned_data_and_odd_groups_take_scalar_loads():
     assert kernel.plan(2, 4096, 320, 32, 4, aligned=False).vec == 1
     p = kernel.plan(2, 50, 27, 9, 4)  # 3-channel groups, no chunk 4 channels wide
     assert p.vec == 1 and p.width % 3 == 0
+
+
+# (B, N, C) of every GroupNorm kernel call on the cascade paths at full width
+# (32 groups): Imagen's base UNet (32/16/8 px) and SR2's 128 px mid block,
+# then prod-image's UNet (96/48/24/12 px)
+CASCADE_PATH = [(2, 1024, 1024), (2, 256, 2048), (2, 64, 2048), (2, 16384, 512),
+                (2, 9216, 384), (2, 2304, 768), (2, 576, 1536), (2, 144, 1536)]
+# SR2's own widths, 2 and 4 channels a group over its 1024 and 512 px levels
+SR2_WIDTHS = [(2, 1048576, 64, 32), (2, 1048576, 128, 32), (2, 262144, 128, 32)]
+
+
+@pytest.mark.parametrize("shape", [(*s, 32) for s in CASCADE_PATH] + SR2_WIDTHS + GN_SR_SHAPES,
+                         ids=_ids)
+def test_plan_at_the_cascade_shapes_stays_within_the_card(shape):
+    """No empty block, the grid (cluster, chunks, B) within CUDA's limits,
+    32-bit element and group counts, and the cached choice: rows stay in
+    shared memory exactly where they fit beside the scratch."""
+    B, N, C, G = shape
+    assert N * C < 2 ** 31 and N * (C // G) < 2 ** 31
+    for elem in (4, 2):
+        p = kernel.plan(B, N, C, G, elem)
+        assert (p.cluster - 1) * p.rows_per_block < N <= p.cluster * p.rows_per_block
+        assert 1 <= p.cluster <= kernel.MAX_CLUSTER and p.chunks <= kernel.MAX_CHUNKS
+        assert B < 2 ** 16 and p.blocks == B * p.chunks * p.cluster
+        assert p.vec == 4 and p.smem <= build.SMEM_LIMIT
+        scratch = 4 * (2 * p.row_lanes * p.width + 4 * p.groups_per_chunk)
+        rows_bytes = -(-p.rows_per_block * p.width * elem // 16) * 16
+        assert p.cached == (scratch + rows_bytes <= build.SMEM_LIMIT)
+        if N >= 262144:  # SR2's widths re-read their rows
+            assert not p.cached and p.width % 8 == 0
+        elif (B, N, C) in CASCADE_PATH:
+            # SR2's mid block: 2048 rows of 64 channels a block, 512 KB in
+            # fp32, re-read; the other main-path calls keep their rows
+            assert p.cached == ((B, N, C) != (2, 16384, 512)) and p.blocks >= 128
 
 
 def test_large_slabs_take_the_re_read_plan():

@@ -166,6 +166,30 @@ def test_attention_kv_offset_matches_jax_ref():
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("case", [
+    dict(Sq=37, Skv=37, H=4, KVH=2, causal=True, window=9, kv_offset=0),
+    dict(Sq=21, Skv=40, H=4, KVH=4, causal=True, window=None, kv_offset=19),
+    dict(Sq=50, Skv=13, H=3, KVH=3, causal=False, window=None, kv_offset=0),
+], ids=["causal-window-gqa", "causal-offset", "cross"])
+def test_attention_ref_chunks_query_rows_without_changing_the_result(case, monkeypatch):
+    """The plain attention bounds its memory by computing the scores over
+    chunks of query rows; the result is the single-chunk one."""
+    rng = np.random.default_rng(7)
+    B, D = 2, 16
+    q = torch.from_numpy(rng.standard_normal((B, case["Sq"], case["H"], D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, case["Skv"], case["KVH"], D)).astype(
+        np.float32)) for _ in range(2))
+    kw = dict(causal=case["causal"], window=case["window"], kv_offset=case["kv_offset"],
+              scale=D ** -0.5)
+    whole = t_fa_ref.attention_ref(q, k, v, **kw)
+    row_bytes = B * case["H"] * case["Skv"] * 4
+    assert t_fa_ref.SCORE_BYTES >= case["Sq"] * row_bytes  # one chunk by default
+    for rows in (1, 5, case["Sq"] - 1):  # ragged last chunk included
+        monkeypatch.setattr(t_fa_ref, "SCORE_BYTES", rows * row_bytes)
+        chunked = t_fa_ref.attention_ref(q, k, v, **kw)
+        np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("F,HW", TATTN_CASES)
 def test_temporal_attention_matches_jax(F, HW):
     """Port kernel tier (plain on CPU) and torch tier vs the JAX oracle and

@@ -149,6 +149,41 @@ def test_full_size_params_bridge_without_transpose():
     assert sum(int(np.prod(s)) for s in j_shapes.values()) > 1_000_000_000
 
 
+@pytest.mark.parametrize("name,params_m", [("imagen", 4076.9), ("prod-image", 1642.1)])
+def test_full_size_cascade_params_bridge_without_transpose(name, params_m):
+    """Imagen (with its ``sr0``/``sr1`` UNets) and prod-image: the port's
+    parameter names and shapes are the JAX tree's, by ``defs`` shapes only
+    (abstract on both sides: 4 B parameters are never allocated)."""
+    jwl = j_workload_for(j_get_config(name))
+    abstract = jax.eval_shape(jwl.init, jax.random.PRNGKey(0))
+    from repro_torch.nn.module import flatten_tree
+
+    j_shapes = {k: tuple(v.shape) for k, v in flatten_tree(abstract).items()}
+    t_defs = param_defs(workload_for(get_config(name)).model)
+    assert {k: d.shape for k, d in t_defs.items()} == j_shapes
+    assert round(sum(int(np.prod(s)) for s in j_shapes.values()) / 1e6, 1) == params_m
+    if name == "imagen":
+        assert t_defs["sr0.conv_in.kernel"].shape == t_defs["sr1.conv_in.kernel"].shape[:2] + (
+            6, 128)
+        assert not any(k.startswith("sr1.") and "cross_attn" in k for k in t_defs)
+
+
+@pytest.mark.parametrize("name", ["imagen", "prod-image"])
+def test_cascade_suite_config_fields_match_jax(name):
+    """``IMAGEN`` and ``PROD_IMAGE`` field for field (SR stages included),
+    registered, and their reduced configs equal the reference's."""
+    def plain(v):
+        if dataclasses.is_dataclass(v):
+            return {f.name: plain(getattr(v, f.name)) for f in dataclasses.fields(v)
+                    if f.name != "dtype"}
+        return tuple(map(plain, v)) if isinstance(v, tuple) else v
+
+    cfg = {"imagen": t_suite.IMAGEN, "prod-image": t_suite.PROD_IMAGE}[name]
+    assert plain(cfg) == plain(j_get_config(name))
+    assert get_config(name) is cfg
+    assert plain(reduced_workload(cfg).cfg) == plain(j_reduced_workload(j_get_config(name)).cfg)
+
+
 @pytest.mark.parametrize("name", ["UNetConfig", "TextEncoderConfig", "DecoderConfig",
                                   "DiffusionConfig", "SRStage"])
 def test_config_fields_match_jax(name):
