@@ -2,7 +2,7 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Four paths, each at full published width with random weights from a seed,
+Six paths, each at full published width with random weights from a seed,
 2 requests each:
 
   - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
@@ -10,7 +10,13 @@ Four paths, each at full published width with random weights from a seed,
     keyframe + 25 temporal; all five kernels);
   - Imagen's pixel cascade (64 px base, 64 steps, then SR to 256 px and to
     1024 px, 20 steps each; three kernels);
-  - prod-image, latent text-to-image (768x768, 50 steps; three kernels).
+  - prod-image, latent text-to-image (768x768, 50 steps; three kernels);
+  - Muse, masked-transformer text-to-image (48 layers of d 2048 over 256
+    image tokens, 12 unmasking steps + 1 fill pass, then a VQ-GAN decoder to
+    128x128; flash attention, conv2d, GroupNorm);
+  - Phenaki, masked-transformer text-to-video (20 layers of d 1536 over 11
+    frames x 256 tokens, 24 unmasking steps + 1 fill pass; flash attention
+    and temporal attention at F = 11).
 
 Phases 3-7 run for each path in turn; each passes or raises, and nothing is
 caught:
@@ -20,28 +26,33 @@ caught:
                  the SASS of the flash-attention and conv GEMM kernels
                  must hold TF32 tensor-core MMAs (cuobjdump)
   3. record   -- full-width weights from a seed; one generate pass with one
-                 step per denoise stage (SR stages included) records every
-                 distinct call each kernel wrapper gets on the path, by
-                 stage; inputs over 64 MiB are kept on the host
+                 step per denoise stage (SR stages included) or one
+                 unmasking step (two backbone passes) records every distinct
+                 call each kernel wrapper gets on the path, by stage; inputs
+                 over 64 MiB are kept on the host
   4. kernels  -- each recorded call replayed: the CUDA kernel against its
                  plain PyTorch version on the same inputs, in fp32 and bf16,
                  timed beside the plain version, one library call and the
-                 card's bound; weighted by its stage's steps.  A kernel has
-                 two times: ``ms``, back-to-back wrapper calls (host launch
-                 cost included), and ``device_ms``, its launches captured in
-                 a CUDA graph and replayed (the card's time alone)
-  5. unet     -- one full-width step of each denoising network of the path
+                 card's bound; weighted by the network passes its stage makes
+                 in a generate (a parallel decode of n steps makes n + 1).
+                 A kernel has two times: ``ms``, back-to-back wrapper calls
+                 (host launch cost included), and ``device_ms``, its launches
+                 captured in a CUDA graph and replayed (the card's time alone)
+  5. tiers    -- the kernel tier against the torch tier at full width, same
+                 weights and input: one step of each denoising network
                  (UNet, VideoUNet, each SR UNet on its 6-channel [z, up]
-                 input) on the kernel tier against the torch tier, same
-                 weights and input
+                 input), or one transformer backbone pass on two token rows
+                 (all masks; half unmasked), its logits compared
   6. main     -- the path: ``workload_for(cfg)``, 2 requests through
                  ``prepare_request`` and ``generate``, with every kernel's
                  launch count set to 0 just before and read just after; the
                  counts must equal the recorded plan
   7. small    -- the reduced config's generate on the card against the CPU
-                 plain path
+                 plain path; a parallel decode's tokens must be equal
 
-Each phase logs its wall time and the peak device memory it reached.  It
+Each phase logs its wall time and the peak device memory it reached.  Phase
+2 logs the registers and spills of the flash-attention instances the paths
+use (``[ptxas]``).  It
 prints a ``{"kernels": [...]}`` line (each kernel's launches and times
 summed over all paths' main runs), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``.  Per-call details go to
@@ -155,6 +166,25 @@ def sass_mma(lib: Path, families=("fa_kernel", "conv2d_kernel")) -> dict | None:
             ops.update(c)
         out[fam] = dict(instances=len(inst), hmma_per_instance_min=min(
             sum(c.values()) for c in inst.values()), opcodes=dict(ops))
+    return out
+
+
+def ptxas_usage(log: str, family: str = "fa_kernel") -> dict:
+    """Registers and spill-store bytes of each instance of a kernel family
+    in nvcc's ``-Xptxas -v`` output, by its demangled template arguments
+    (``fa_kernel<float, 128>`` -> ``"f 128"``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line and family in line:
+            args = line.split(family + "I", 1)[1]
+            dtype = "f" if args.startswith("f") else "bf16"
+            name = f"{dtype} {args.split('Li', 1)[1].split('E', 1)[0]}"
+            out[name] = dict(spill_stores=0)
+        elif name is not None and "spill stores" in line:
+            out[name]["spill_stores"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif name is not None and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split("registers")[0])
+            name = None
     return out
 
 
@@ -472,13 +502,20 @@ def _compare(name, case, out, gold, tol):
     return max_err(out, gold)
 
 
-def check_kernels(rec, stage_steps):
+def check_kernels(rec, passes, rec_passes):
     """Replay every recorded call: kernel vs plain in fp32 and bf16, and
-    times weighted by the launches one main-path generate makes (each
-    recorded stage ran one step; the main path runs ``stage_steps``)."""
+    times weighted by the launches one main-path generate makes: a call
+    recorded n times in a stage that made ``rec_passes`` network passes
+    launches n * ``passes`` / ``rec_passes`` times in the main path."""
     rows = []
     for call in rec.calls.values():
-        weight = sum(n * stage_steps[st] for st, n in call["counts"].items())
+        by_stage = {}
+        for st, n in call["counts"].items():
+            if n * passes[st] % rec_passes[st]:
+                raise AssertionError(f"{call['name']}: {n} calls in {rec_passes[st]} recorded "
+                                     f"passes of {st}")
+            by_stage[st] = n * passes[st] // rec_passes[st]
+        weight = sum(by_stage.values())
         case = CASES[call["name"]]([_on_card(a) for a in call["args"]],
                                    {k: _on_card(v) for k, v in call["kw"].items()})
         label = f"{call['name']} {case['shape']}"
@@ -492,7 +529,7 @@ def check_kernels(rec, stage_steps):
         library_ms = time_ms(case["library"])
         ops_ms = case["flops"] / case.get("peak", PEAK_FP32_FLOPS) * 1e3
         bytes_ms = case["bytes"] / PEAK_BYTES * 1e3
-        row = dict(kernel=call["name"], shape=case["shape"], stages=dict(call["counts"]),
+        row = dict(kernel=call["name"], shape=case["shape"], launches_by_stage=by_stage,
                    launches=weight, max_abs_err=err, max_abs_err_bf16=err_bf16,
                    tol_fp32=case["tol"], ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                    library_ms=library_ms,
@@ -517,20 +554,20 @@ def check_kernels(rec, stage_steps):
     return rows
 
 
-def breakdown(rows, stage_steps):
+def breakdown(rows, passes):
     """Kernel time over one main-path generate by kernel and stage; the same
-    per step of each multi-step stage; and conv2d per step by its input's
-    spatial size."""
+    per network pass (step) of each multi-pass stage; and conv2d per step by
+    its input's spatial size."""
     by_stage = collections.defaultdict(collections.Counter)
     conv_hw = collections.defaultdict(collections.Counter)
     for r in rows:
-        for st, n in r["stages"].items():
-            t = r["ms"] * n * stage_steps[st]
+        for st, n in r["launches_by_stage"].items():
+            t = r["ms"] * n
             by_stage[r["kernel"]][st] += t
-            if stage_steps[st] > 1 and r["kernel"] == "conv2d":
-                conv_hw[st][r["shape"].split(", ")[1]] += t / stage_steps[st]
+            if passes[st] > 1 and r["kernel"] == "conv2d":
+                conv_hw[st][r["shape"].split(", ")[1]] += t / passes[st]
     per_step = {st: {k: v[st] / n for k, v in by_stage.items() if st in v}
-                for st, n in stage_steps.items() if n > 1}
+                for st, n in passes.items() if n > 1}
     return dict(ms_by_kernel_and_stage={k: dict(v) for k, v in by_stage.items()},
                 step_ms_by_stage_and_kernel=per_step,
                 conv_step_ms_by_stage_and_input_hw={k: dict(v) for k, v in conv_hw.items()})
@@ -561,19 +598,51 @@ def summarize(paths):
 # ---------------------------------------------------------------------------
 
 
-def denoisers(model, cfg) -> list:
-    """``(name, network, shape of its B=2 input)`` of every denoising network
-    of the path: the base UNet (or VideoUNet), then each SR UNet, whose
-    input is ``[z, up]`` at its stage's output size."""
+def stage_passes(wl) -> dict:
+    """Network passes of each stage in one generate: a denoise stage's
+    steps; a parallel decode's steps + 1 (the loop, then the fill pass)."""
+    return {st.name: st.steps + (st.name == "parallel_decode")
+            for st in wl.cost_descriptor().stages}
+
+
+def tier_checks(model, cfg, tokens) -> list:
+    """``(name, description, f(impl))`` of each full-width network call that
+    phase 5 runs on both tiers: one step of every denoising network (the
+    base UNet or VideoUNet, then each SR UNet on its ``[z, up]`` input), or
+    one transformer backbone pass over two token rows, all masks (the first
+    step) and half of the positions unmasked from a seeded draw."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
+    if hasattr(model, "backbone"):  # Muse, Phenaki: logits of one pass
+        S, mask = model.pos.shape[0], model.mask_token
+        drawn = torch.randint(0, mask, (S,), generator=g, device="cuda")
+        half = torch.where(torch.rand(S, generator=g, device="cuda") < 0.5, drawn, mask)
+        toks = torch.stack([torch.full_like(half, mask), half])
+        return [("backbone", f"backbone pass over tokens {tuple(toks.shape)}",
+                 lambda impl: model.backbone(toks, ctx, impl=impl))]
     if hasattr(model, "vunet"):  # Make-A-Video: (B, F, H, W, C) video latents
         hw = cfg.image_size // cfg.latent_down
-        return [("vunet", model.vunet, (2, cfg.frames, hw, hw, cfg.unet.in_channels))]
-    return [("unet", model.unet, (2, cfg.latent_size, cfg.latent_size, cfg.unet.in_channels))] + [
-        (f"sr{i}", unet, (2, s.out_size, s.out_size, s.unet.in_channels))
-        for i, (s, unet) in enumerate(zip(cfg.sr_stages, model.sr_unets))]
+        nets = [("vunet", model.vunet, (2, cfg.frames, hw, hw, cfg.unet.in_channels))]
+    else:
+        nets = [("unet", model.unet, (2, cfg.latent_size, cfg.latent_size,
+                                      cfg.unet.in_channels))] + [
+            (f"sr{i}", unet, (2, s.out_size, s.out_size, s.unet.in_channels))
+            for i, (s, unet) in enumerate(zip(cfg.sr_stages, model.sr_unets))]
+    t = torch.tensor([999.0, 499.0], device="cuda")
+    checks = []
+    for name, net, shape in nets:
+        z = torch.randn(shape, generator=g, device="cuda")
+        checks.append((name, f"{type(net).__name__} step, input {shape}",
+                       lambda impl, net=net, z=z: net(z, t, ctx, impl=impl)))
+    return checks
 
 
 def output_shape(cfg):
+    if hasattr(cfg, "vq"):  # Muse: the VQ-GAN decoder's image
+        hw = cfg.vq.token_hw * 2 ** (len(cfg.vq.decoder.channel_mult) - 1)
+        return (2, hw, hw, 3)
+    if hasattr(cfg, "tokens_per_frame"):  # Phenaki: the video tokens
+        return (2, cfg.frames * cfg.tokens_per_frame)
     if hasattr(cfg, "frames"):
         hw = cfg.image_size // cfg.latent_down
         return (2, cfg.frames, hw, hw, cfg.unet.in_channels)
@@ -582,13 +651,31 @@ def output_shape(cfg):
 
 
 def record_config(cfg, record_steps: int):
-    """``cfg`` with ``record_steps`` denoise steps and one step per SR stage:
-    one step of every stage's network."""
+    """``cfg`` with ``record_steps`` denoise steps and one step per SR stage
+    (one step of every stage's network), or one unmasking step."""
+    if hasattr(cfg, "parallel_steps"):
+        return dataclasses.replace(cfg, parallel_steps=1)
     cfg = dataclasses.replace(cfg, denoise_steps=record_steps)
     if getattr(cfg, "sr_stages", ()):
         cfg = dataclasses.replace(cfg, sr_stages=tuple(
             dataclasses.replace(s, steps=1) for s in cfg.sr_stages))
     return cfg
+
+
+def generate_states(wl, model, tokens, device):
+    """``wl.generate`` on ``device``, with each stage's output state kept."""
+    states, run = {}, wl.run_stage
+
+    def run_stage(params, stage, *a, **k):
+        states[stage.name] = run(params, stage, *a, **k)
+        return states[stage.name]
+
+    wl.run_stage = run_stage
+    try:
+        out = wl.generate(model, tokens, SEED, device=device)
+    finally:
+        del wl.run_stage
+    return out, states
 
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> dict:
@@ -597,7 +684,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
     from repro_torch.workload import reduced_workload, workload_for
 
     wl = workload_for(cfg)
-    stage_steps = {st.name: st.steps for st in wl.cost_descriptor().stages}
+    passes = stage_passes(wl)
 
     # -- 3. record ------------------------------------------------------------
     with phase(cfg.name, "init + record"):
@@ -611,7 +698,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         tokens = [torch.randint(0, cfg.text.vocab, (cfg.text.max_len,), generator=rng).numpy()
                   for _ in range(2)]
         # one step per denoise stage (SD: 1; Make-A-Video: 1 keyframe + 1
-        # temporal; Imagen: 1 base + 1 per SR stage)
+        # temporal; Imagen: 1 base + 1 per SR stage), or one unmasking step
         wl_rec = workload_for(record_config(cfg, record_steps))
         rec = record_main_path(wl_rec, model, tokens, SEED)
         log(f"[record] {cfg.name}: {len(rec.calls)} distinct kernel calls in stages "
@@ -619,40 +706,31 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
 
     # -- 4. kernels vs plain ----------------------------------------------------
     with phase(cfg.name, "kernels"):
-        rows = check_kernels(rec, stage_steps)
+        rows = check_kernels(rec, passes, stage_passes(wl_rec))
         del rec
         torch.cuda.empty_cache()
         (OUT_DIR / f"kernel_calls_{cfg.name}.json").write_text(
             json.dumps(dict(device=smi, rows=rows), indent=1))
 
-    # -- 5. one full-width step of each denoising network, kernel vs torch tier ----
-    with phase(cfg.name, "unet step"):
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        unet_ms, unet_err = {}, {}
+    # -- 5. the kernel tier against the torch tier at full width ------------------
+    with phase(cfg.name, "tiers"):
+        tier_ms, tier_err = {}, {}
         with torch.inference_mode():
-            ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
-            t = torch.tensor([999.0, 499.0], device="cuda")
-            for name, net, x_shape in denoisers(model, cfg):
-                z = torch.randn(x_shape, generator=g, device="cuda")
-                step = {}
-                for impl in ("kernel", "torch"):
-                    step[impl] = net(z, t, ctx, impl=impl)
-                    step[impl + "_ms"] = time_ms(lambda: net(z, t, ctx, impl=impl),
-                                                 min_total_ms=0, max_reps=3)
-                err = max_err(step["kernel"], step["torch"])
-                unet_ms[name] = {impl: step[impl + "_ms"] for impl in ("kernel", "torch")}
-                unet_err[name] = err
-                scale = step["torch"].abs().max().item()
-                log(f"[unet] {cfg.name} full-width {name} ({type(net).__name__}) step, input "
-                    f"{x_shape}: kernel tier {step['kernel_ms']:.1f} ms, torch tier "
-                    f"{step['torch_ms']:.1f} ms; max abs diff {err:.3e} (max |out| {scale:.3e})")
-                # 60+ chained layers, each agreeing to the kernel tolerances above
-                if not (torch.isfinite(step["kernel"]).all() and err <= 1e-3 * max(1.0, scale)):
+            for name, what, fn in tier_checks(model, cfg, tokens):
+                out = {impl: fn(impl) for impl in ("kernel", "torch")}
+                tier_ms[name] = {impl: time_ms(lambda: fn(impl), min_total_ms=0, max_reps=3)
+                                 for impl in ("kernel", "torch")}
+                err = tier_err[name] = max_err(out["kernel"], out["torch"])
+                scale = out["torch"].abs().max().item()
+                log(f"[tier] {cfg.name} full-width {name} ({what}): kernel tier "
+                    f"{tier_ms[name]['kernel']:.1f} ms, torch tier {tier_ms[name]['torch']:.1f} "
+                    f"ms; max abs diff {err:.3e} (max |out| {scale:.3e})")
+                # tens of chained layers, each agreeing to the kernel tolerances above
+                if not (torch.isfinite(out["kernel"]).all() and err <= 1e-3 * max(1.0, scale)):
                     raise AssertionError(f"{cfg.name} {name}: kernel tier disagrees with the "
                                          f"torch tier: {err}")
-                del step, z
+                del out
                 torch.cuda.empty_cache()
-        del ctx
 
     # -- 6. main path ---------------------------------------------------------
     with phase(cfg.name, "main"):
@@ -668,15 +746,17 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         wall = time.perf_counter() - t0
         launches = dict(build.launches)  # read just after
         peak = torch.cuda.max_memory_allocated()
-        step_ms = {st: stage_s[st] / n * 1e3 for st, n in stage_steps.items() if n > 1}
+        step_ms = {st: stage_s[st] / n * 1e3 for st, n in passes.items() if n > 1}
         log(f"[{tag}] {cfg.name} generate 2 x {tuple(out.shape[1:])} in {wall:.2f} s; stages "
             + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items()) + "; "
-            + ", ".join(f"{v:.1f} ms per {k} step" for k, v in step_ms.items())
+            + ", ".join(f"{v:.1f} ms per {k} pass" for k, v in step_ms.items())
             + f"; peak memory {peak / 2**30:.2f} GiB; launches {launches}")
         if tuple(out.shape) != output_shape(cfg):
             raise AssertionError(f"{cfg.name}: output shape {tuple(out.shape)}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{cfg.name}: non-finite output")
+        if not out.is_floating_point() and not ((out >= 0) & (out < model.mask_token)).all():
+            raise AssertionError(f"{cfg.name}: tokens outside [0, {model.mask_token})")
         expected = {n: sum(r["launches"] for r in rows if r["kernel"] == n) for n in SOURCES}
         expected = {n: c for n, c in expected.items() if c}
         for name in kernels:
@@ -685,8 +765,8 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         if launches != expected:
             raise AssertionError(f"{cfg.name}: launches {launches} differ from the recorded "
                                  f"plan {expected}")
-        split = breakdown(rows, stage_steps)
-        log(f"[breakdown] {cfg.name} kernel ms per step {split['step_ms_by_stage_and_kernel']}; "
+        split = breakdown(rows, passes)
+        log(f"[breakdown] {cfg.name} kernel ms per pass {split['step_ms_by_stage_and_kernel']}; "
             f"conv2d by input size {split['conv_step_ms_by_stage_and_input_hw']}")
         per_kernel = summarize({cfg.name: dict(rows=rows, launches=launches)})
         log(f"[kernels] {cfg.name} over one generate (ms): " + "; ".join(
@@ -700,21 +780,28 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         rwl = reduced_workload(cfg)
         state = init_params(rwl.model, SEED)
         toks_small = [t[: rwl.cfg.text.max_len] % rwl.cfg.text.vocab for t in tokens]
-        small = {dev: rwl.generate(rwl.load(state, dev), toks_small, SEED, device=dev)
+        small = {dev: generate_states(rwl, rwl.load(state, dev), toks_small, dev)
                  for dev in ("cuda", "cpu")}
-        small_err = max_err(small["cuda"].cpu(), small["cpu"])
+        (out_cuda, st_cuda), (out_cpu, st_cpu) = small["cuda"], small["cpu"]
+        if "parallel_decode" in st_cpu:  # the decoded tokens, before any decoder
+            tok = {dev: next(iter(st["parallel_decode"].values())).cpu()
+                   for dev, st in (("cuda", st_cuda), ("cpu", st_cpu))}
+            log(f"[small] reduced {rwl.cfg.name} parallel decode, card vs CPU plain: "
+                f"{int((tok['cuda'] != tok['cpu']).sum())} of {tok['cpu'].numel()} tokens differ")
+            if not torch.equal(tok["cuda"], tok["cpu"]):
+                raise AssertionError(f"reduced {cfg.name}: tokens differ, card vs CPU")
+        small_err = max_err(out_cuda.cpu(), out_cpu)
         log(f"[small] reduced {rwl.cfg.name} generate, card vs CPU plain: max abs diff "
-            f"{small_err:.3e} (max |out| {small['cpu'].abs().max().item():.3e})")
-        assert_close(f"reduced {cfg.name} generate", small["cuda"].cpu(), small["cpu"],
+            f"{small_err:.3e} (max |out| {out_cpu.abs().max().item():.3e})")
+        assert_close(f"reduced {cfg.name} generate", out_cuda.cpu(), out_cpu,
                      dict(rtol=1e-4, atol=1e-4))
 
     del model
     torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches, summary=dict(
-        denoise_steps=cfg.denoise_steps, stage_steps=stage_steps, generate_s=wall,
-        stage_s=stage_s, step_ms=step_ms, unet_tier_ms=unet_ms, peak_gib=peak / 2**30,
-        unet_kernel_vs_torch_err=unet_err, small_err=small_err, launches=launches,
-        kernels=per_kernel, **split))
+        passes=passes, generate_s=wall, stage_s=stage_s, step_ms=step_ms, tier_ms=tier_ms,
+        peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err, small_err=small_err,
+        launches=launches, kernels=per_kernel, **split))
 
 
 # ---------------------------------------------------------------------------
@@ -735,7 +822,14 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"needs an sm_90 (Hopper) card, got capability {cap}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.suite import IMAGEN, MAKE_A_VIDEO, PROD_IMAGE, STABLE_DIFFUSION
+    from repro_torch.configs.suite import (
+        IMAGEN,
+        MAKE_A_VIDEO,
+        MUSE,
+        PHENAKI,
+        PROD_IMAGE,
+        STABLE_DIFFUSION,
+    )
     from repro_torch.kernels import build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -748,6 +842,10 @@ def main() -> int:
     log(f"[build] {len(SOURCES)} kernels in {time.perf_counter() - t0:.2f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
     (OUT_DIR / "nvcc.log").write_text(build.nvcc_log())
+    usage = ptxas_usage(build.nvcc_log())
+    log("[ptxas] flash attention (registers, spill-store bytes): " + "; ".join(
+        f"D {d} {t}: {usage[f'{t} {d}']['registers']}, {usage[f'{t} {d}']['spill_stores']}"
+        for d in (40, 64, 128, 160, 192) for t in ("f", "bf16")))
     mma = sass_mma(build.BUILD_ROOT / build.source_hash() / build.LIB_NAME)
     log("[sass] " + ("cuobjdump not found: not checked" if mma is None else "; ".join(
         f"{fam}: {v['instances']} instances, each with >= {v['hmma_per_instance_min']} HMMA, "
@@ -764,6 +862,10 @@ def main() -> int:
         IMAGEN.name: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi, kernels=spatial),
         PROD_IMAGE.name: run_path(
             PROD_IMAGE, tag="main-prod", record_steps=1, smi=smi, kernels=spatial),
+        MUSE.name: run_path(MUSE, tag="main-muse", record_steps=1, smi=smi,
+                            kernels=("conv2d", "flash_attention")),
+        PHENAKI.name: run_path(PHENAKI, tag="main-phenaki", record_steps=1, smi=smi,
+                               kernels=("flash_attention", "temporal_flash_attention")),
     }
     kernels = summarize(paths)
     paths_s = time.perf_counter() - t_all

@@ -3,11 +3,12 @@
 from __future__ import annotations
 
 from repro_torch.configs import register
+from repro_torch.models.ar_image import ARImageConfig
 from repro_torch.models.diffusion import DiffusionConfig, SRStage
 from repro_torch.models.text_encoder import TextEncoderConfig
-from repro_torch.models.ttv import TTVConfig
+from repro_torch.models.ttv import PhenakiConfig, TTVConfig
 from repro_torch.models.unet import UNetConfig
-from repro_torch.models.vae import DecoderConfig
+from repro_torch.models.vae import DecoderConfig, VQDecoderConfig
 
 # Stable Diffusion (latent; Table I: 1.45B, attn res [4,2,1], mult [1,2,4,4],
 # 2 res blocks, 8 heads, embed dim 768)
@@ -95,6 +96,24 @@ PROD_IMAGE = DiffusionConfig(
 )
 register(PROD_IMAGE)
 
+# Muse (Table I: 3B, 48 layers, model dim 2048, parallel decoding)
+MUSE = ARImageConfig(
+    name="muse",
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    d_ff=8192,
+    image_vocab=8192,
+    image_tokens=256,  # 16x16 base grid
+    decode="parallel",
+    parallel_steps=12,
+    text=TextEncoderConfig(vocab=32128, max_len=77, n_layers=24, d_model=1024,
+                           n_heads=16, d_ff=4096),
+    vq=VQDecoderConfig(codebook_size=8192, token_hw=16, embed_dim=256),
+    source="[arXiv:2301.00704 / paper Table I]",
+)
+register(MUSE)
+
 # Make-A-Video (diffusion TTV: SD-like UNet + temporal attn/conv, 16 frames)
 MAKE_A_VIDEO = TTVConfig(
     name="make-a-video",
@@ -114,3 +133,20 @@ MAKE_A_VIDEO = TTVConfig(
     source="[arXiv:2209.14792]",
 )
 register(MAKE_A_VIDEO)
+
+# Phenaki (transformer TTV over C-ViViT tokens, parallel decode)
+PHENAKI = PhenakiConfig(
+    name="phenaki",
+    n_layers=20,
+    d_model=1536,
+    n_heads=24,
+    d_ff=6144,
+    video_vocab=8192,
+    frames=11,
+    tokens_per_frame=256,
+    parallel_steps=24,
+    text=TextEncoderConfig(vocab=32128, max_len=77, n_layers=12, d_model=768,
+                           n_heads=12, d_ff=3072),
+    source="[arXiv:2210.02399]",
+)
+register(PHENAKI)

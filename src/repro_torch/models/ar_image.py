@@ -1,0 +1,146 @@
+"""Masked-transformer text-to-image (Muse), the port of
+``repro.models.ar_image``: a decoder-only transformer over image tokens,
+conditioned on a text encoder through cross-attention and sampled by
+parallel decoding (MaskGIT), then a VQ-GAN decoder to pixels.  Every decode
+step runs the whole constant-length token sequence (the paper's Fig. 7
+"Muse" profile).
+
+The MaskGIT rule, which the reference writes out twice (``ar_image.py``
+``decode_parallel`` and ``ttv.py`` ``decode_tokens``), is written once here
+(:func:`maskgit_step`, :func:`parallel_decode`); Phenaki calls it too.
+Parti's autoregressive decode (a causal backbone with a KV cache) comes
+with its own slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models.layers.basic import Dense, Embedding
+from repro_torch.models.layers.norms import LayerNorm
+from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+from repro_torch.models.transformer import Block
+from repro_torch.models.vae import VQDecoderConfig, VQGANDecoder
+from repro_torch.nn import Module, normal_init
+
+
+@dataclasses.dataclass(frozen=True)
+class ARImageConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    image_vocab: int = 8192
+    image_tokens: int = 1024  # 32x32 grid
+    decode: str = "ar"  # "ar" (Parti) | "parallel" (Muse)
+    parallel_steps: int = 12
+    text: TextEncoderConfig = TextEncoderConfig()
+    vq: VQDecoderConfig = VQDecoderConfig()
+    family: str = "transformer_tti"
+    dtype: Any = torch.float32
+    source: str = ""
+
+
+# ---------------------------------------------------------------------------
+# MaskGIT parallel decoding (deterministic: greedy predictions, unmasked by
+# confidence on a cosine schedule; no random draw)
+# ---------------------------------------------------------------------------
+
+
+def keep_count(i: int, steps: int, seq_len: int) -> int:
+    """Positions left masked after step ``i``: ``cos((i + 1) / steps * pi / 2)
+    * seq_len``, truncated, computed in float32 in the reference's order of
+    operations.  Python's float64 gives another count where the product
+    lands near an integer (e.g. 128 for 127 at seq_len 256, 12 steps, i 7).
+    Always on the CPU, so every device takes the same schedule."""
+    frac = torch.tensor(i + 1, dtype=torch.int32) / steps
+    frac = torch.cos(frac * math.pi / 2)
+    return int((frac * seq_len).to(torch.int32))
+
+
+def maskgit_step(tokens: torch.Tensor, logits: torch.Tensor, i: int, steps: int,
+                 mask_token: int) -> torch.Tensor:
+    """One unmasking step: the still-masked positions whose confidence (the
+    max log-probability) is at least the n-th best take their argmax, where
+    n brings the masked count down to :func:`keep_count`.  Every position
+    tied with the n-th best is unmasked, as in the reference (a top-k would
+    take exactly n)."""
+    S = tokens.shape[1]
+    pred = logits.argmax(-1)  # the first maximum, as jnp.argmax
+    conf = torch.log_softmax(logits, dim=-1).amax(-1)
+    still = tokens == mask_token
+    conf = conf.masked_fill(~still, -math.inf)
+    order = conf.sort(dim=-1, descending=True).values
+    n_unmask = (S - keep_count(i, steps, S) - (~still).sum(-1)).clamp(min=0)
+    cutoff = order.gather(-1, (n_unmask - 1).clamp(min=0)[:, None])
+    unmask = still & (conf >= cutoff) & (n_unmask > 0)[:, None]
+    return torch.where(unmask, pred, tokens)
+
+
+def parallel_decode(backbone: Callable, ctx: torch.Tensor, seq_len: int, steps: int,
+                    mask_token: int) -> torch.Tensor:
+    """All-masked tokens (B, seq_len) -> decoded tokens: ``steps`` MaskGIT
+    steps, then one more backbone pass fills any position still masked
+    with its argmax (``steps + 1`` passes in all)."""
+    tokens = torch.full((ctx.shape[0], seq_len), mask_token, dtype=torch.int64,
+                        device=ctx.device)
+    for i in range(steps):
+        tokens = maskgit_step(tokens, backbone(tokens, ctx), i, steps, mask_token)
+    pred = backbone(tokens, ctx).argmax(-1)
+    return torch.where(tokens == mask_token, pred, tokens)
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+class ARImageModel(Module):
+    """Parameter tree ``{"text", "ctx_proj", "embed", "pos", "final_ln",
+    "head", "vq", "layer{i}"}``, as the reference's.  Inference is driven by
+    ``ARImageWorkload.run_stage`` only."""
+
+    def __init__(self, cfg: ARImageConfig):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg
+        self.text = TextEncoder(c.text)
+        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype)
+        self.embed = Embedding(c.image_vocab + 1, c.d_model, c.dtype)  # +1: the mask token
+        self.param("pos", (c.image_tokens, c.d_model), normal_init(0.01), c.dtype)
+        self.final_ln = LayerNorm(c.d_model, dtype=c.dtype)
+        self.head = Dense(c.d_model, c.image_vocab, False, c.dtype)
+        self.vq = VQGANDecoder(c.vq)
+        for i in range(c.n_layers):
+            self.add_module(f"layer{i}", Block(c.d_model, c.n_heads, c.d_ff, with_cross=True,
+                                               dtype=c.dtype))
+
+    @property
+    def mask_token(self) -> int:
+        return self.cfg.image_vocab  # the last id
+
+    def encode_text(self, tokens, *, impl="auto"):
+        """The text encoding projected to the model width: (B, L, d_model)."""
+        return self.ctx_proj(self.text(tokens, impl=impl))
+
+    def backbone(self, tokens, ctx, *, impl="auto"):
+        """tokens (B, S) -> logits (B, S, image_vocab), non-causal."""
+        if self.cfg.decode != "parallel":
+            raise NotImplementedError("the causal backbone of autoregressive decode (Parti) "
+                                      "is not ported yet")
+        x = self.embed(tokens)
+        x = x + self.pos[: tokens.shape[1]].to(x.dtype)[None]
+        for i in range(self.cfg.n_layers):
+            x = getattr(self, f"layer{i}")(x, context=ctx, impl=impl)
+        return self.head(self.final_ln(x))
+
+    def decode_parallel(self, ctx, steps: int, *, impl="auto"):
+        """Muse parallel decoding of ``steps`` unmasking steps from a
+        projected text context (the workload passes its stage's steps)."""
+        return parallel_decode(lambda t, cx: self.backbone(t, cx, impl=impl), ctx,
+                               self.cfg.image_tokens, steps, self.mask_token)

@@ -1,8 +1,12 @@
 """Multi-head attention layer (``repro.models.layers.attention.Attention``):
-non-causal self-attention and cross-attention to a context, as the UNet and
-the text encoder use it.  Causal/windowed masks, GQA, RoPE, qk-norm and
-decode with a KV cache come with the LM slice (the kernel already takes
-the masks and GQA)."""
+non-causal self-attention and cross-attention to a context, as the UNet, the
+text encoders and the parallel-decode transformers (Muse, Phenaki) use it.
+
+The reference builds the attention of Muse's transformer ``Block`` with
+``rope=True``, but ``ARImageModel.backbone`` passes ``positions=None``, so
+its RoPE is a no-op and this layer has none.  Causal/windowed masks, GQA,
+RoPE, qk-norm and decode with a KV cache come with Parti and the LM slice
+(the kernel already takes the masks and GQA)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Feed-forward block (``repro.models.layers.mlp``): the non-gated, biased
-tanh-GELU MLP of the text encoder.  Gated and bias-free variants come with
-the LM slice."""
+"""Feed-forward block (``repro.models.layers.mlp``): the non-gated tanh-GELU
+MLP, biased in the text encoder and bias-free in the transformer ``Block``.
+Gated variants come with the LM slice."""
 
 from __future__ import annotations
 
@@ -12,10 +12,10 @@ from repro_torch.nn import Module
 
 
 class MLP(Module):
-    def __init__(self, d_model: int, d_ff: int, dtype=torch.float32):
+    def __init__(self, d_model: int, d_ff: int, use_bias: bool = False, dtype=torch.float32):
         super().__init__()
-        self.wi = Dense(d_model, d_ff, True, dtype)
-        self.wo = Dense(d_ff, d_model, True, dtype)
+        self.wi = Dense(d_model, d_ff, use_bias, dtype)
+        self.wo = Dense(d_ff, d_model, use_bias, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation

@@ -33,7 +33,7 @@ class _EncoderLayer(Module):
         self.attn = Attention(c.d_model, c.n_heads, c.d_model // c.n_heads,
                               qkv_bias=True, out_bias=True, dtype=c.dtype)
         self.ln2 = LayerNorm(c.d_model, dtype=c.dtype)
-        self.mlp = MLP(c.d_model, c.d_ff, dtype=c.dtype)
+        self.mlp = MLP(c.d_model, c.d_ff, use_bias=True, dtype=c.dtype)
 
     def forward(self, x, *, impl="auto"):
         x = x + self.attn(self.ln1(x), impl=impl)

@@ -1,26 +1,33 @@
-"""Make-A-Video text-to-video model, the port of ``repro.models.ttv``.
+"""Text-to-video models, the port of ``repro.models.ttv``.
 
-A diffusion VideoUNet: the spatial UNet runs with frames folded into the
-batch, and temporal attention + temporal conv layers run after every
-spatial attention block (paper Fig. 3/10).  Temporal attention attends
-across frames: sequence length F, batch B * H * W.  Inference only; the
-training loss and Phenaki come with later slices.
+* Make-A-Video: a diffusion VideoUNet.  The spatial UNet runs with frames
+  folded into the batch, and temporal attention + temporal conv layers run
+  after every spatial attention block (paper Fig. 3/10).  Temporal
+  attention attends across frames: sequence length F, batch B * H * W.
+* Phenaki: a masked transformer over (frames x spatial) video tokens with
+  factorized spatial / temporal attention, sampled by parallel decoding
+  (the MaskGIT rule of ``models/ar_image.py``).
+
+Inference only; the training losses come with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
-from repro_torch.models.layers.basic import Dense
+from repro_torch.models.ar_image import parallel_decode
+from repro_torch.models.layers.attention import Attention
+from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.conv import TemporalConv1D
 from repro_torch.models.layers.norms import LayerNorm
 from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from repro_torch.models.unet import UNet2D, UNetConfig, unet_plan
-from repro_torch.nn import Module
+from repro_torch.nn import Module, normal_init
 
 
 class TemporalAttention(Module):
@@ -128,3 +135,102 @@ class MakeAVideoPipeline(Module):
 
     def encode_text(self, tokens, *, impl="auto"):
         return self.text(tokens, impl=impl)
+
+
+# ---------------------------------------------------------------------------
+# Phenaki: masked transformer over video tokens, factorized attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PhenakiConfig:
+    name: str
+    n_layers: int = 20
+    d_model: int = 1536
+    n_heads: int = 24
+    d_ff: int = 6144
+    video_vocab: int = 8192
+    frames: int = 11
+    tokens_per_frame: int = 256  # 16x16
+    parallel_steps: int = 24
+    text: TextEncoderConfig = TextEncoderConfig()
+    family: str = "ttv_transformer"
+    dtype: Any = torch.float32
+    source: str = ""
+
+
+class _PhenakiLayer(Module):
+    """One ``layer{i}``: ``ln_s``, ``spatial``, ``temporal``, ``ln_c``,
+    ``cross``, ``ln_f``, ``ff_in``, ``ff_out``."""
+
+    def __init__(self, c: PhenakiConfig):
+        super().__init__()
+        self.frames = c.frames
+        hd = c.d_model // c.n_heads
+        self.ln_s = LayerNorm(c.d_model, dtype=c.dtype)
+        self.spatial = Attention(c.d_model, c.n_heads, hd, dtype=c.dtype)
+        self.temporal = TemporalAttention(c.d_model, hd, c.dtype)
+        self.ln_c = LayerNorm(c.d_model, dtype=c.dtype)
+        self.cross = Attention(c.d_model, c.n_heads, hd, cross=True, dtype=c.dtype)
+        self.ln_f = LayerNorm(c.d_model, dtype=c.dtype)
+        self.ff_in = Dense(c.d_model, c.d_ff, True, c.dtype)
+        self.ff_out = Dense(c.d_ff, c.d_model, True, c.dtype)
+
+    def forward(self, x, ctx, *, impl="auto"):
+        B, S, d = x.shape
+        frames = self.frames
+        hw = S // frames
+        side = math.isqrt(hw)
+        # spatial: attend within each frame (frames fold into the batch)
+        h = self.spatial(self.ln_s(x).reshape(B * frames, hw, d), impl=impl)
+        x = x + h.reshape(B, S, d)
+        # temporal: across frames at each position; the layer adds its own
+        # residual
+        x = self.temporal(x.reshape(B, frames, side, side, d), impl=impl).reshape(B, S, d)
+        x = x + self.cross(self.ln_c(x), context=ctx, impl=impl)
+        # jax.nn.gelu defaults to the tanh approximation
+        h = torch.nn.functional.gelu(self.ff_in(self.ln_f(x)), approximate="tanh")
+        return x + self.ff_out(h)
+
+
+class PhenakiModel(Module):
+    """Bidirectional transformer over (F, HW) video tokens; parameter tree
+    ``{"text", "ctx_proj", "embed", "pos", "final_ln", "head", "layer{i}"}``.
+    Inference is driven by ``PhenakiWorkload.run_stage`` only."""
+
+    def __init__(self, cfg: PhenakiConfig):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg
+        self.text = TextEncoder(c.text)
+        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype)
+        self.embed = Embedding(c.video_vocab + 1, c.d_model, c.dtype)  # +1: the mask token
+        self.param("pos", (c.frames * c.tokens_per_frame, c.d_model), normal_init(0.01),
+                   c.dtype)
+        self.final_ln = LayerNorm(c.d_model, dtype=c.dtype)
+        self.head = Dense(c.d_model, c.video_vocab, False, c.dtype)
+        for i in range(c.n_layers):
+            self.add_module(f"layer{i}", _PhenakiLayer(c))
+
+    @property
+    def mask_token(self) -> int:
+        return self.cfg.video_vocab
+
+    def encode_text(self, tokens, *, impl="auto"):
+        """The text encoding projected to the model width: (B, L, d_model)."""
+        return self.ctx_proj(self.text(tokens, impl=impl))
+
+    def backbone(self, tokens, ctx, *, impl="auto"):
+        """tokens (B, F*HW) -> logits (B, F*HW, video_vocab)."""
+        x = self.embed(tokens)
+        x = x + self.pos[: tokens.shape[1]].to(x.dtype)[None]
+        for i in range(self.cfg.n_layers):
+            x = getattr(self, f"layer{i}")(x, ctx, impl=impl)
+        return self.head(self.final_ln(x))
+
+    def decode_tokens(self, ctx, steps: int, *, impl="auto"):
+        """MaskGIT parallel decode of ``steps`` unmasking steps from a
+        projected text context (the workload passes its stage's steps)."""
+        c = self.cfg
+        return parallel_decode(lambda t, cx: self.backbone(t, cx, impl=impl), ctx,
+                               c.frames * c.tokens_per_frame, steps, self.mask_token)

@@ -1,6 +1,6 @@
-"""Convolutional VAE decoder (latent -> pixels), the port of
-``repro.models.vae.ConvDecoder``.  The VQ-GAN decoder comes with the
-transformer TTI slice."""
+"""Convolutional decoders to pixels, the port of ``repro.models.vae``:
+``ConvDecoder`` (latent -> pixels) and ``VQGANDecoder`` (image tokens ->
+codebook vectors -> ``ConvDecoder``)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from typing import Any
 import torch
 
 from repro_torch.kernels.conv2d import ops as conv_ops
+from repro_torch.models.layers.basic import Embedding
 from repro_torch.models.layers.conv import Conv2D, fused_gn_producer
 from repro_torch.models.layers.norms import GroupNorm
 from repro_torch.models.unet import ResBlock, Upsample
@@ -79,3 +80,28 @@ class ConvDecoder(Module):
             else:
                 h = mod(h, impl=impl)
         return h
+
+
+@dataclasses.dataclass(frozen=True)
+class VQDecoderConfig:
+    codebook_size: int = 8192
+    token_hw: int = 16  # 16x16 image tokens
+    embed_dim: int = 256
+    decoder: DecoderConfig = DecoderConfig(latent_channels=256, channel_mult=(1, 1, 2, 4))
+    dtype: Any = torch.float32
+
+
+class VQGANDecoder(Module):
+    """Image tokens (B, token_hw^2) -> pixels; parameter tree
+    ``{"codebook", "decoder"}``."""
+
+    def __init__(self, cfg: VQDecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.codebook = Embedding(cfg.codebook_size, cfg.embed_dim, cfg.dtype)
+        self.decoder = ConvDecoder(cfg.decoder)
+
+    def forward(self, tokens, *, impl="auto"):
+        c = self.cfg
+        z = self.codebook(tokens).reshape(tokens.shape[0], c.token_hw, c.token_hw, c.embed_dim)
+        return self.decoder(z, impl=impl)

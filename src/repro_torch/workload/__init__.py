@@ -12,12 +12,13 @@ from repro_torch.workload.base import (
     stage_noise,
     workload_for,
 )
+from repro_torch.workload.ar_image import ARImageWorkload
 from repro_torch.workload.diffusion import DiffusionWorkload
-from repro_torch.workload.ttv import MakeAVideoWorkload
+from repro_torch.workload.ttv import MakeAVideoWorkload, PhenakiWorkload
 
 __all__ = [
-    "CostDescriptor", "DiffusionWorkload", "GenRequest", "GenerativeWorkload",
-    "MakeAVideoWorkload", "Stage",
+    "ARImageWorkload", "CostDescriptor", "DiffusionWorkload", "GenRequest",
+    "GenerativeWorkload", "MakeAVideoWorkload", "PhenakiWorkload", "Stage",
     "reduced_workload", "register_workload", "stage_generator", "stage_noise",
     "workload_for",
 ]

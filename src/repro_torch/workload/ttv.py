@@ -1,9 +1,10 @@
-"""Text-to-video workload (Make-A-Video), the port of ``repro.workload.ttv``.
+"""Text-to-video workloads, the port of ``repro.workload.ttv``.
 
-A factorized sampler over one DDIM schedule: ``keyframe_denoise`` runs the
-first half spatial-only (frames folded into the batch, no temporal layers),
-``temporal_denoise`` resumes the schedule with the VideoUNet.  Phenaki comes
-with the transformer slice.
+Make-A-Video is a factorized sampler over one DDIM schedule:
+``keyframe_denoise`` runs the first half spatial-only (frames folded into the
+batch, no temporal layers), ``temporal_denoise`` resumes the schedule with
+the VideoUNet.  Phenaki parallel-decodes a constant-length (frames x tokens)
+grid, like Muse.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.diffusion import ddim_range
-from repro_torch.models.ttv import MakeAVideoPipeline, TTVConfig
+from repro_torch.models.ttv import MakeAVideoPipeline, PhenakiConfig, PhenakiModel, TTVConfig
 from repro_torch.workload.base import (
     CostDescriptor,
     GenerativeWorkload,
@@ -104,3 +105,33 @@ class MakeAVideoWorkload(GenerativeWorkload):
 
             return {"out": ddim_range(video_eps, z, total, kf, total)}
         raise ValueError(f"unknown TTV stage {stage.name!r}")
+
+
+@register_workload(PhenakiConfig)
+class PhenakiWorkload(GenerativeWorkload):
+    route = "pod"
+    modality = "video"
+
+    def build_model(self, cfg: PhenakiConfig) -> PhenakiModel:
+        return PhenakiModel(cfg)
+
+    def reduced(self) -> PhenakiConfig:
+        cfg = self.cfg
+        return dataclasses.replace(
+            cfg, name=cfg.name + "-reduced", n_layers=2, d_model=64, n_heads=4, d_ff=128,
+            video_vocab=128, frames=3, tokens_per_frame=16, parallel_steps=3, text=REDUCED_TEXT)
+
+    def cost_descriptor(self) -> CostDescriptor:
+        cfg = self.cfg
+        S = cfg.frames * cfg.tokens_per_frame
+        return CostDescriptor(arch=cfg.name, route=self.route, stages=(
+            Stage("text_encoder", 1, cfg.text.max_len),
+            Stage("parallel_decode", cfg.parallel_steps, S, demand=(S,))))
+
+    def run_stage(self, params, stage, state, gens, *, impl="auto"):
+        del gens  # confidence-ranked unmasking draws nothing
+        if stage.name == "text_encoder":
+            return {"ctx": params.encode_text(state["tokens"], impl=impl)}
+        if stage.name == "parallel_decode":
+            return {"out": params.decode_tokens(state["ctx"], stage.steps, impl=impl)}
+        raise ValueError(f"unknown Phenaki stage {stage.name!r}")

@@ -155,6 +155,7 @@ TATTN_CARD_CASES = [
     ((2, 16, 64, 20, 64), None),    # and its smallest: 1280 items on 528 warps
     ((1, 16, 8, 2, 64), None),      # 8 work items, fewer than the card's SMs
     ((1, 32, 9, 1, 256), 30),       # the largest head dim: one warp a block
+    ((2, 11, 256, 24, 64), None),   # Phenaki's call: F = 11 on 16 lanes, full width
 ]
 # The pixel SR cascade's new shapes (Imagen's SR UNets, prod-image's heads).
 # conv2d (B, H, W, C_in, C_out, K, stride): the SR conv_in of [z, up] (6
@@ -166,6 +167,14 @@ SR_CONV_SHAPES = [(2, 256, 256, 6, 128, 3, 1), (2, 256, 256, 128, 3, 3, 1)]
 SR_ATTN_CASES = [
     (2, 144, 144, 8, 8, 48, False, None), (2, 144, 144, 8, 8, 96, False, None),
     (2, 144, 144, 8, 8, 192, False, None), (2, 1024, 128, 16, 16, 64, False, None),
+]
+# The masked transformers' flash attention (B, Sq, Skv, H, KVH, D, causal,
+# window), at full width: Muse's self- and cross-attention (16 heads of 128),
+# Phenaki's spatial attention (frames folded into the batch) and its
+# cross-attention from 2816 video tokens to the 77 text tokens
+TRANSFORMER_ATTN_CASES = [
+    (2, 256, 256, 16, 16, 128, False, None), (2, 256, 77, 16, 16, 128, False, None),
+    (22, 256, 256, 24, 24, 64, False, None), (2, 2816, 77, 24, 24, 64, False, None),
 ]
 # GroupNorm (B, N, C, groups): 2 and 4 channels a group over rows that
 # overflow the cluster's shared memory (SR2's widths at 512 px)
@@ -473,6 +482,18 @@ def test_attention_cuda_sr_head_widths_match_plain(h100, case, dtype):
     from repro_torch.kernels.flash_attention import flash_attention as kernel
 
     q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=20))
+    out = kernel.flash_attention(q, k, v, scale=case[5] ** -0.5)
+    gold = t_fa_ref.attention_ref(q, k, v, scale=case[5] ** -0.5)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", TRANSFORMER_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_transformer_shapes_match_plain(h100, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=23))
     out = kernel.flash_attention(q, k, v, scale=case[5] ** -0.5)
     gold = t_fa_ref.attention_ref(q, k, v, scale=case[5] ** -0.5)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)

@@ -3,6 +3,9 @@ line of ``chip_smoke.py`` and no line of the card tests
 (``tests/test_torch_cuda.py``) imports ``jax`` or the JAX package ``repro``."""
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -38,8 +41,25 @@ def test_port_has_files():
 def test_checked_files_include_the_ttv_slice():
     port = ROOT / "src" / "repro_torch"
     for rel in ("models/ttv.py", "workload/ttv.py", "kernels/flash_attention/flash_attention.py",
-                "kernels/conv2d/conv2d.py", "models/layers/conv.py"):
+                "kernels/conv2d/conv2d.py", "models/layers/conv.py", "models/transformer.py",
+                "models/ar_image.py", "workload/ar_image.py"):
         assert port / rel in PORT_FILES
+
+
+@pytest.mark.parametrize("name", ["muse", "phenaki"])
+def test_workload_builds_without_jax(name):
+    """A process that never imported ``jax`` or ``repro`` builds the
+    full-size workload (on ``meta``: nothing is allocated)."""
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.workload import workload_for\n"
+        f"wl = workload_for(get_config({name!r}))\n"
+        "assert wl.cost_descriptor().stages[1].name == 'parallel_decode'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=300)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
