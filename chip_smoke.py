@@ -2,7 +2,7 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 
-Six paths, each at full published width with random weights from a seed,
+Eight paths, each at full published width with random weights from a seed,
 2 requests each:
 
   - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
@@ -16,7 +16,14 @@ Six paths, each at full published width with random weights from a seed,
     128x128; flash attention, conv2d, GroupNorm);
   - Phenaki, masked-transformer text-to-video (20 layers of d 1536 over 11
     frames x 256 tokens, 24 unmasking steps + 1 fill pass; flash attention
-    and temporal attention at F = 11).
+    and temporal attention at F = 11);
+  - LLaMA2-7B, the LM baseline in fp32 (2048-token prompts: one causal
+    prefill through flash attention, then 64 greedy decode steps against a
+    KV cache);
+  - Parti, autoregressive text-to-image in bf16 (21.9 B parameters, 87.6 GB
+    in fp32, do not fit the card): 80 causal layers of d 4096 decode 1024
+    image tokens one at a time against a KV cache, then a VQ-GAN decoder to
+    256x256; flash attention in the text encoder, conv2d in the decoder.
 
 Phases 3-7 run for each path in turn; each passes or raises, and nothing is
 caught:
@@ -26,29 +33,35 @@ caught:
                  the SASS of the flash-attention and conv GEMM kernels
                  must hold TF32 tensor-core MMAs (cuobjdump)
   3. record   -- full-width weights from a seed; one generate pass with one
-                 step per denoise stage (SR stages included) or one
-                 unmasking step (two backbone passes) records every distinct
-                 call each kernel wrapper gets on the path, by stage; inputs
-                 over 64 MiB are kept on the host
+                 step per denoise stage (SR stages included), one unmasking
+                 step (two backbone passes), or the first 2 steps of an
+                 autoregressive decode records every distinct call each
+                 kernel wrapper gets on the path, by stage; inputs over 64 MiB
+                 are kept on the host
   4. kernels  -- each recorded call replayed: the CUDA kernel against its
                  plain PyTorch version on the same inputs, in fp32 and bf16,
-                 timed beside the plain version, one library call and the
-                 card's bound; weighted by the network passes its stage makes
-                 in a generate (a parallel decode of n steps makes n + 1).
+                 timed in the recorded dtype beside the plain version, one
+                 library call and the card's bound; weighted by the network
+                 passes its stage makes in a generate (a parallel decode of n
+                 steps makes n + 1; a decode of n tokens n).
                  A kernel has two times: ``ms``, back-to-back wrapper calls
                  (host launch cost included), and ``device_ms``, its launches
                  captured in a CUDA graph and replayed (the card's time alone)
   5. tiers    -- the kernel tier against the torch tier at full width, same
                  weights and input: one step of each denoising network
                  (UNet, VideoUNet, each SR UNet on its 6-channel [z, up]
-                 input), or one transformer backbone pass on two token rows
-                 (all masks; half unmasked), its logits compared
+                 input), one transformer backbone pass on two token rows
+                 (all masks; half unmasked), the LM's prefill logits, or
+                 Parti's text encoding, first decode step and VQ-GAN image
   6. main     -- the path: ``workload_for(cfg)``, 2 requests through
                  ``prepare_request`` and ``generate``, with every kernel's
                  launch count set to 0 just before and read just after; the
                  counts must equal the recorded plan
-  7. small    -- the reduced config's generate on the card against the CPU
-                 plain path; a parallel decode's tokens must be equal
+  6b. decode  -- the autoregressive paths: three decode steps timed, then
+                 profiled (torch.profiler): the card's busy time and
+                 launches per step, and the ops that take most of it
+  7. small    -- the reduced config's generate, in fp32, on the card against
+                 the CPU plain path; decoded tokens must be equal
 
 Each phase logs its wall time and the peak device memory it reached.  Phase
 2 logs the registers and spills of the flash-attention instances the paths
@@ -63,6 +76,7 @@ no result.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import json
 import math
@@ -71,6 +85,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -78,15 +93,16 @@ OUT_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, TF32
-# on the tensor cores (dense), HBM3 bandwidth.  Each kernel's bound takes the
-# peak of the math it runs.  On the tensor cores, as 3xTF32 (three TF32 MMAs
-# per fp32-accurate product) for fp32 inputs: conv2d and the temporal conv
-# (one GEMM kernel; two MMAs per product for bf16, whose A operand is split)
-# and flash attention (for bf16 one MMA for Q.K^T and two for P.V, 1.5 per
-# product).  GroupNorm and temporal attention compute in fp32 on the CUDA
-# cores.
+# and bf16 on the tensor cores (dense), HBM3 bandwidth.  The GEMM-shaped
+# kernels run on the tensor cores: for fp32 inputs their bound takes the rate
+# of the fp32-accurate math they run, 3xTF32 (three TF32 MMAs per product:
+# conv2d, the temporal conv, flash attention); for bf16 inputs the card's
+# bf16 peak, though the kernels still run TF32 MMAs there (two per product
+# for conv2d, 1.5 for flash attention).  GroupNorm and temporal attention
+# compute in fp32 on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 F32 = dict(rtol=2e-5, atol=2e-5)  # the repo's kernel tolerance (tests/test_kernels.py)
 TEMPORAL_F32 = dict(rtol=3e-5, atol=3e-5)  # the repo's temporal attention tolerance
@@ -233,6 +249,12 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over all elements, in fp32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
 def assert_close(name, a, b, tol):
     """|a - b| <= atol * max(1, max|b|) + rtol * |b|: the absolute part is
     relative to the output's scale, because summation-order error follows
@@ -305,7 +327,7 @@ def kernel_modules():
             "temporal_conv1d": conv2d}
 
 
-def record_main_path(wl, model, tokens, seed):
+def record_main_path(wl, model, tokens, seed, **gen_kw):
     rec = Recorder()
     mods = kernel_modules()
     saved = {n: getattr(m, n) for n, m in mods.items()}
@@ -319,7 +341,7 @@ def record_main_path(wl, model, tokens, seed):
     for n, m in mods.items():
         setattr(m, n, rec.wrap(n, saved[n]))
     try:
-        wl.generate(model, tokens, seed, impl="auto")
+        wl.generate(model, tokens, seed, impl="auto", **gen_kw)
         torch.cuda.synchronize()
     finally:
         for n, m in mods.items():
@@ -351,6 +373,7 @@ def conv_case(args, kw):
     nbytes = _nbytes(x, w, *kw.values()) + out_bytes + (B * 2 * C_out * 4 if kw.get(
         "emit_stats") else 0)
     w_cl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    bias_lib = None if kw.get("bias") is None else kw["bias"].to(x.dtype)
 
     def library():
         # cuDNN conv on the NHWC data (channels_last) + the same producer/epilogue
@@ -359,7 +382,8 @@ def conv_case(args, kw):
             xin = x * kw["gn_a"][:, None, None, :] + kw["gn_b"][:, None, None, :]
             if kw.get("gn_silu", True):
                 xin = torch.nn.functional.silu(xin)
-        y = torch.nn.functional.conv2d(xin.permute(0, 3, 1, 2), w_cl, kw.get("bias"),
+            xin = xin.to(x.dtype)
+        y = torch.nn.functional.conv2d(xin.permute(0, 3, 1, 2), w_cl, bias_lib,
                                        stride=s, padding=K // 2).permute(0, 2, 3, 1)
         if kw.get("temb") is not None:
             y = y + kw["temb"][:, None, None, :]
@@ -376,15 +400,15 @@ def conv_case(args, kw):
     # holds for its test shapes (R <= 72); widen by sqrt(R / 64) beyond that
     widen = max(1.0, math.sqrt(R / 64))
     tol = dict(rtol=F32["rtol"] * widen, atol=F32["atol"] * widen)
-    peak = PEAK_TF32_FLOPS / (3 if x.dtype == torch.float32 else 2)
+    peak = PEAK_TF32_FLOPS / 3 if x.dtype == torch.float32 else PEAK_BF16_FLOPS
     return dict(kernel=lambda: kmod.conv2d(x, w, **kw), plain=lambda: ref.conv2d_ref(x, w, **kw),
-                library=library, flops=flops, bytes=nbytes, tol=tol, peak=peak,
+                library=library, flops=flops, bytes=nbytes, tol=tol, peak=peak, dtype=x.dtype,
                 plan=dict(zip(("bm", "bn", "splits"), kmod.plan(B, OH, OW, C_out, R))),
                 shape=f"x{tuple(x.shape)} w{tuple(w.shape)} s{s} " + " ".join(
                     k for k in ("gn_a", "temb", "silu", "residual", "emit_stats")
                     if kw.get(k) is not None and kw.get(k) is not False),
-                to_bf16=lambda: conv_case([x.bfloat16(), w.bfloat16()], {
-                    k: (v.bfloat16() if k == "residual" and v is not None else v)
+                as_dtype=lambda dt: conv_case([x.to(dt), w.to(dt)], {
+                    k: (v.to(dt) if k == "residual" and v is not None else v)
                     for k, v in kw.items()}))
 
 
@@ -394,19 +418,39 @@ def attention_case(args, kw):
 
     q, k, v = args
     B, Sq, H, D = q.shape
-    Skv = k.shape[1]
-    flops = 4.0 * B * H * Sq * Skv * D
+    Skv, KVH = k.shape[1], k.shape[2]
+    causal, window, offset = kw.get("causal", False), kw.get("window"), kw.get("kv_offset", 0)
+    # the (query, key) pairs the masks keep, the work this call's data needs:
+    # row i sees keys [lo, hi) around its position i + kv_offset
+    rows = torch.arange(Sq) + offset
+    hi = (rows + 1).clamp(max=Skv) if causal else torch.full_like(rows, Skv)
+    lo = (rows - window + 1).clamp(min=0) if window is not None else torch.zeros_like(rows)
+    flops = 4.0 * B * H * D * int((hi - lo).clamp(min=0).sum())
     nbytes = _nbytes(q, k, v) + q.numel() * q.element_size()
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if KVH != H:
+        kt, vt = (t.repeat_interleave(H // KVH, dim=1) for t in (kt, vt))
+    # SDPA's is_causal aligns the diagonal at the top left: other masks go in
+    # as a boolean mask
+    top_left = causal and window is None and offset == 0 and Sq == Skv
+    plain_mask = (causal or window is not None) and not top_left
+
+    def library():
+        mask = None
+        if plain_mask:
+            cols = torch.arange(Skv, device=q.device)[None, :]
+            mask = (cols >= lo.to(q.device)[:, None]) & (cols < hi.to(q.device)[:, None])
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, scale=kw["scale"], is_causal=top_left, attn_mask=mask)
+
     return dict(
         kernel=lambda: kmod.flash_attention(q, k, v, **kw),
         plain=lambda: ref.attention_ref(q, k, v, **kw),
-        library=lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, scale=kw["scale"], is_causal=kw.get("causal", False)),
-        flops=flops, bytes=nbytes, tol=F32,
-        peak=PEAK_TF32_FLOPS / (3 if q.dtype == torch.float32 else 1.5),
-        shape=f"q{tuple(q.shape)} kv{tuple(k.shape)}",
-        to_bf16=lambda: attention_case([t.bfloat16() for t in args], kw))
+        library=library,
+        flops=flops, bytes=nbytes, tol=F32, dtype=q.dtype,
+        peak=PEAK_TF32_FLOPS / 3 if q.dtype == torch.float32 else PEAK_BF16_FLOPS,
+        shape=f"q{tuple(q.shape)} kv{tuple(k.shape)}" + (" causal" if kw.get("causal") else ""),
+        as_dtype=lambda dt: attention_case([t.to(dt) for t in args], kw))
 
 
 def groupnorm_case(args, kw):
@@ -425,9 +469,9 @@ def groupnorm_case(args, kw):
         kernel=lambda: kmod.groupnorm_silu(x, scale, bias, **kw),
         plain=lambda: ref.groupnorm_silu_ref(x, scale, bias, **kw),
         library=library, flops=8.0 * x.numel(), bytes=2 * _nbytes(x) + _nbytes(scale, bias),
-        tol=F32, plan=plan._asdict(),
+        tol=F32, plan=plan._asdict(), dtype=x.dtype,
         shape=f"x{tuple(x.shape)} groups {kw['groups']} silu {kw.get('silu', True)}",
-        to_bf16=lambda: groupnorm_case([x.bfloat16(), scale, bias], kw))
+        as_dtype=lambda dt: groupnorm_case([x.to(dt), scale.to(dt), bias.to(dt)], kw))
 
 
 def temporal_attention_case(args, kw):
@@ -453,8 +497,8 @@ def temporal_attention_case(args, kw):
         kernel=lambda: kmod.temporal_flash_attention(q, k, v, **kw),
         plain=lambda: ref.temporal_attention_ref(q, k, v, **kw),
         library=library, flops=flops, bytes=nbytes, tol=TEMPORAL_F32, plan=plan._asdict(),
-        shape=f"q{tuple(q.shape)}",
-        to_bf16=lambda: temporal_attention_case([t.bfloat16() for t in args], kw))
+        shape=f"q{tuple(q.shape)}", dtype=q.dtype,
+        as_dtype=lambda dt: temporal_attention_case([t.to(dt) for t in args], kw))
 
 
 def temporal_conv_case(args, kw):
@@ -482,10 +526,10 @@ def temporal_conv_case(args, kw):
             x.reshape(B, nf, N, 1, C), w, bias).reshape(B, nf, N, C_out),
         library=library, flops=flops, bytes=nbytes,
         tol=dict(rtol=F32["rtol"] * widen, atol=F32["atol"] * widen),
-        peak=PEAK_TF32_FLOPS / (3 if x.dtype == torch.float32 else 2),
+        peak=PEAK_TF32_FLOPS / 3 if x.dtype == torch.float32 else PEAK_BF16_FLOPS,
         plan=dict(zip(("bm", "bn", "splits"), kmod.plan(B, nf, N, C_out, K * C))),
-        shape=f"x{tuple(x.shape)} w{tuple(w.shape)}",
-        to_bf16=lambda: temporal_conv_case([x.bfloat16(), w.bfloat16(), bias], kw))
+        shape=f"x{tuple(x.shape)} w{tuple(w.shape)}", dtype=x.dtype,
+        as_dtype=lambda dt: temporal_conv_case([x.to(dt), w.to(dt), bias], kw))
 
 
 CASES = {"conv2d": conv_case, "flash_attention": attention_case,
@@ -518,11 +562,14 @@ def check_kernels(rec, passes, rec_passes):
         weight = sum(by_stage.values())
         case = CASES[call["name"]]([_on_card(a) for a in call["args"]],
                                    {k: _on_card(v) for k, v in call["kw"].items()})
-        label = f"{call['name']} {case['shape']}"
-        err = _compare(label, case, case["kernel"](), case["plain"](), case["tol"])
-        bf = case["to_bf16"]()
-        err_bf16 = _compare(label + " bf16", bf, bf["kernel"](), bf["plain"](), BF16)
-        del bf
+        label = f"{call['name']} {case['shape']} {str(case['dtype']).split('.')[-1]}"
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):  # the recorded dtype and the other
+            c = case if case["dtype"] == dt else case["as_dtype"](dt)
+            errs[dt] = _compare(f"{label} as {str(dt).split('.')[-1]}", c, c["kernel"](),
+                                c["plain"](), case["tol"] if dt == torch.float32 else BF16)
+            del c
+        err, err_bf16 = errs[torch.float32], errs[torch.bfloat16]
         ms = time_ms(case["kernel"])
         dev_ms = device_ms(case["kernel"], ms)
         plain_ms = time_ms(case["plain"])
@@ -598,20 +645,67 @@ def summarize(paths):
 # ---------------------------------------------------------------------------
 
 
-def stage_passes(wl) -> dict:
+def stage_passes(wl, gen_kw: dict) -> dict:
     """Network passes of each stage in one generate: a denoise stage's
-    steps; a parallel decode's steps + 1 (the loop, then the fill pass)."""
-    return {st.name: st.steps + (st.name == "parallel_decode")
-            for st in wl.cost_descriptor().stages}
+    steps; a parallel decode's steps + 1 (the loop, then the fill pass); an
+    LM decode's ``max_new_tokens`` (``gen_kw``, else the stage's steps)."""
+    out = {st.name: st.steps + (st.name == "parallel_decode")
+           for st in wl.cost_descriptor().stages}
+    if "max_new_tokens" in gen_kw:
+        out["decode"] = gen_kw["max_new_tokens"]
+    return out
+
+
+def _fp32(module):
+    """An fp32 copy of a (bf16) module, run on the torch tier: the exact
+    computation a bf16 tier is held to."""
+    return copy.deepcopy(module).float()
+
+
+def parti_fp32_first_step(model, prompts):
+    """Parti's first decode step (BOS 0 at position 0) in fp32 from the same
+    bf16 weights, as ``ar_step``: the text encoder, then each block copied to
+    fp32 one at a time (the whole model in fp32 would not fit the card)."""
+    ctx = _fp32(model.ctx_proj)(_fp32(model.text)(prompts, impl="torch"))
+    x = (model.embed.table[0].float() + model.pos[0].float()).expand(2, 1, -1)
+    for block in model.blocks():
+        b = _fp32(block)
+        cache = b.attn.init_cache(2, 1, dtype=torch.float32)
+        x, _ = b.decode(x, {"attn": cache}, 0, cross_cache=b.cross_attn.project_kv(ctx))
+        del b
+    return _fp32(model.head)(_fp32(model.final_ln)(x))[:, 0]
 
 
 def tier_checks(model, cfg, tokens) -> list:
-    """``(name, description, f(impl))`` of each full-width network call that
-    phase 5 runs on both tiers: one step of every denoising network (the
-    base UNet or VideoUNet, then each SR UNet on its ``[z, up]`` input), or
-    one transformer backbone pass over two token rows, all masks (the first
-    step) and half of the positions unmasked from a seeded draw."""
+    """``(name, description, f(impl), f32)`` of each full-width network call
+    that phase 5 runs on both tiers: one step of every denoising network (the
+    base UNet or VideoUNet, then each SR UNet on its ``[z, up]`` input), one
+    transformer backbone pass over two token rows, all masks (the first
+    step) and half of the positions unmasked from a seeded draw, the LM's
+    prefill logits, or Parti's text encoding, first decode step and VQ-GAN
+    image.  ``f32`` computes a bf16 model's output in fp32 from the same
+    weights (None for an fp32 model)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    prompts = torch.as_tensor(np.stack(tokens), device="cuda")
+    if is_lm(cfg):  # the prefill's last-position logits
+        return [("prefill", f"prefill logits over tokens {tuple(prompts.shape)}",
+                 lambda impl: model.prefill(prompts, impl=impl)[0], None)]
+    if getattr(cfg, "decode", None) == "ar":  # Parti: text, first decode step, image
+        def first_step(impl):
+            caches, cross = model.ar_init(model.encode_text(prompts, impl=impl))
+            return model.ar_step(torch.zeros((2, 1), dtype=torch.int64, device="cuda"), 0,
+                                 caches, cross)
+
+        img = torch.randint(0, cfg.vq.codebook_size, (2, cfg.image_tokens), generator=g,
+                            device="cuda")
+        return [("text", f"text encoding of prompts {tuple(prompts.shape)}",
+                 lambda impl: model.encode_text(prompts, impl=impl),
+                 lambda: _fp32(model.ctx_proj)(_fp32(model.text)(prompts, impl="torch"))),
+                ("decode_step", "first decode step's logits from each tier's text encoding",
+                 first_step, lambda: parti_fp32_first_step(model, prompts)),
+                ("vq", f"VQ-GAN image of tokens {tuple(img.shape)}",
+                 lambda impl: model.vq(img, impl=impl),
+                 lambda: _fp32(model.vq)(img, impl="torch"))]
     ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
     if hasattr(model, "backbone"):  # Muse, Phenaki: logits of one pass
         S, mask = model.pos.shape[0], model.mask_token
@@ -619,7 +713,7 @@ def tier_checks(model, cfg, tokens) -> list:
         half = torch.where(torch.rand(S, generator=g, device="cuda") < 0.5, drawn, mask)
         toks = torch.stack([torch.full_like(half, mask), half])
         return [("backbone", f"backbone pass over tokens {tuple(toks.shape)}",
-                 lambda impl: model.backbone(toks, ctx, impl=impl))]
+                 lambda impl: model.backbone(toks, ctx, impl=impl), None)]
     if hasattr(model, "vunet"):  # Make-A-Video: (B, F, H, W, C) video latents
         hw = cfg.image_size // cfg.latent_down
         nets = [("vunet", model.vunet, (2, cfg.frames, hw, hw, cfg.unet.in_channels))]
@@ -633,12 +727,67 @@ def tier_checks(model, cfg, tokens) -> list:
     for name, net, shape in nets:
         z = torch.randn(shape, generator=g, device="cuda")
         checks.append((name, f"{type(net).__name__} step, input {shape}",
-                       lambda impl, net=net, z=z: net(z, t, ctx, impl=impl)))
+                       lambda impl, net=net, z=z: net(z, t, ctx, impl=impl), None))
     return checks
 
 
+def is_lm(cfg) -> bool:
+    from repro_torch.configs.base import LMConfig
+
+    return isinstance(cfg, LMConfig)
+
+
+def decode_profile(model, cfg, tokens, steps: int = 3) -> dict:
+    """Where a decode step's time goes, for the autoregressive paths: the
+    wall time of ``steps`` steps (LLaMA at the prompt's end, Parti at image
+    token 512, half its decode), then the same steps under
+    ``torch.profiler``: the card's busy time per step (the sum of its kernels
+    and copies), the launches per step and the ops that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = torch.as_tensor(np.stack(tokens), device="cuda")
+    if is_lm(cfg):
+        S = prompts.shape[1]
+        _, caches = model.prefill(prompts, max_len=S + steps + 1)
+        tok = prompts[:, -1:]
+
+        def step(i):
+            return model.decode_step(tok, caches, S + i)
+    else:
+        caches, cross = model.ar_init(model.encode_text(prompts))
+        prev = torch.zeros((2, 1), dtype=torch.int64, device="cuda")
+
+        def step(i):
+            return model.ar_step(prev, cfg.image_tokens // 2 + i, caches, cross)
+
+    step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    us = [getattr(e, "device_time_total", None) or e.cuda_time_total for e in on_card]
+    busy_ms = sum(us) / steps / 1e3
+    by_name = collections.Counter()
+    for e, t in zip(on_card, us):
+        by_name[e.name[:60]] += t / steps / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                launches_per_step=len(on_card) / steps,
+                top_ms={k: v for k, v in by_name.most_common(6)})
+
+
 def output_shape(cfg):
-    if hasattr(cfg, "vq"):  # Muse: the VQ-GAN decoder's image
+    if is_lm(cfg):  # the new tokens
+        from repro_torch.workload.lm import TRACE_DECODE
+
+        return (2, TRACE_DECODE)
+    if hasattr(cfg, "vq"):  # Muse, Parti: the VQ-GAN decoder's image
         hw = cfg.vq.token_hw * 2 ** (len(cfg.vq.decoder.channel_mult) - 1)
         return (2, hw, hw, 3)
     if hasattr(cfg, "tokens_per_frame"):  # Phenaki: the video tokens
@@ -651,15 +800,21 @@ def output_shape(cfg):
 
 
 def record_config(cfg, record_steps: int):
-    """``cfg`` with ``record_steps`` denoise steps and one step per SR stage
-    (one step of every stage's network), or one unmasking step."""
+    """(config, generate kwargs) of the recording run: ``record_steps``
+    denoise steps and one step per SR stage (one step of every stage's
+    network), one unmasking step, or the first 2 tokens of an
+    autoregressive decode (the rest of Parti's image tokens stay 0)."""
+    if is_lm(cfg):
+        return cfg, {"max_new_tokens": 2}
+    if getattr(cfg, "decode", None) == "ar":
+        return dataclasses.replace(cfg, image_tokens=2), {}
     if hasattr(cfg, "parallel_steps"):
-        return dataclasses.replace(cfg, parallel_steps=1)
+        return dataclasses.replace(cfg, parallel_steps=1), {}
     cfg = dataclasses.replace(cfg, denoise_steps=record_steps)
     if getattr(cfg, "sr_stages", ()):
         cfg = dataclasses.replace(cfg, sr_stages=tuple(
             dataclasses.replace(s, steps=1) for s in cfg.sr_stages))
-    return cfg
+    return cfg, {}
 
 
 def generate_states(wl, model, tokens, device):
@@ -679,34 +834,39 @@ def generate_states(wl, model, tokens, device):
 
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> dict:
+    from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
     from repro_torch.nn import init_params
     from repro_torch.workload import reduced_workload, workload_for
 
     wl = workload_for(cfg)
-    passes = stage_passes(wl)
+    passes = stage_passes(wl, {})
 
     # -- 3. record ------------------------------------------------------------
     with phase(cfg.name, "init + record"):
         t0 = time.perf_counter()
         model = wl.init(SEED, "cuda")
         torch.cuda.synchronize()
-        log(f"[init] full-width {cfg.name}: "
-            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params in "
-            f"{time.perf_counter() - t0:.2f} s")
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        dtype = str(next(model.parameters()).dtype).split(".")[-1]
+        log(f"[init] full-width {cfg.name}: {n_params / 1e6:.1f} M params ({dtype}) in "
+            f"{init_s:.2f} s")
         rng = torch.Generator().manual_seed(SEED)
-        tokens = [torch.randint(0, cfg.text.vocab, (cfg.text.max_len,), generator=rng).numpy()
+        tokens = [torch.randint(0, wl.prompt_vocab, (wl.max_prompt_len,), generator=rng).numpy()
                   for _ in range(2)]
         # one step per denoise stage (SD: 1; Make-A-Video: 1 keyframe + 1
-        # temporal; Imagen: 1 base + 1 per SR stage), or one unmasking step
-        wl_rec = workload_for(record_config(cfg, record_steps))
-        rec = record_main_path(wl_rec, model, tokens, SEED)
+        # temporal; Imagen: 1 base + 1 per SR stage), one unmasking step, or
+        # the first 2 tokens of a decode
+        rec_cfg, rec_kw = record_config(cfg, record_steps)
+        wl_rec = workload_for(rec_cfg)
+        rec = record_main_path(wl_rec, model, tokens, SEED, **rec_kw)
         log(f"[record] {cfg.name}: {len(rec.calls)} distinct kernel calls in stages "
             f"{sorted({st for c in rec.calls.values() for st in c['counts']})}")
 
     # -- 4. kernels vs plain ----------------------------------------------------
     with phase(cfg.name, "kernels"):
-        rows = check_kernels(rec, passes, stage_passes(wl_rec))
+        rows = check_kernels(rec, passes, stage_passes(wl_rec, rec_kw))
         del rec
         torch.cuda.empty_cache()
         (OUT_DIR / f"kernel_calls_{cfg.name}.json").write_text(
@@ -714,9 +874,9 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
 
     # -- 5. the kernel tier against the torch tier at full width ------------------
     with phase(cfg.name, "tiers"):
-        tier_ms, tier_err = {}, {}
+        tier_ms, tier_err, tier_f32_err = {}, {}, {}
         with torch.inference_mode():
-            for name, what, fn in tier_checks(model, cfg, tokens):
+            for name, what, fn, f32 in tier_checks(model, cfg, tokens):
                 out = {impl: fn(impl) for impl in ("kernel", "torch")}
                 tier_ms[name] = {impl: time_ms(lambda: fn(impl), min_total_ms=0, max_reps=3)
                                  for impl in ("kernel", "torch")}
@@ -724,9 +884,26 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
                 scale = out["torch"].abs().max().item()
                 log(f"[tier] {cfg.name} full-width {name} ({what}): kernel tier "
                     f"{tier_ms[name]['kernel']:.1f} ms, torch tier {tier_ms[name]['torch']:.1f} "
-                    f"ms; max abs diff {err:.3e} (max |out| {scale:.3e})")
-                # tens of chained layers, each agreeing to the kernel tolerances above
-                if not (torch.isfinite(out["kernel"]).all() and err <= 1e-3 * max(1.0, scale)):
+                    f"ms; max abs diff {err:.3e} (max |out| {scale:.3e}), relative L2 "
+                    f"{rel_l2(out['kernel'], out['torch']):.3e}")
+                if f32 is None:
+                    # tens of chained fp32 layers, each agreeing to the kernel
+                    # tolerances above: within 1e-3 of the output's scale
+                    ok = err <= 1e-3 * max(1.0, scale)
+                else:
+                    # a bf16 model rounds every layer's output to 8 bits, and
+                    # the two tiers' roundings part ways over 100 layers: each
+                    # tier is held to the fp32 computation of the same weights,
+                    # and the kernel tier must be as close to it as the plain
+                    # one (1.5x, or within bf16's unit 2^-8 in norm)
+                    gold = f32()
+                    e = {impl: rel_l2(out[impl], gold) for impl in out}
+                    tier_f32_err[name] = e
+                    ok = e["kernel"] <= max(1.5 * e["torch"], 2.0 ** -8)
+                    log(f"[tier] {cfg.name} {name} against fp32 of the same weights, relative "
+                        f"L2: kernel tier {e['kernel']:.3e}, torch tier {e['torch']:.3e}")
+                    del gold
+                if not (torch.isfinite(out["kernel"]).all() and ok):
                     raise AssertionError(f"{cfg.name} {name}: kernel tier disagrees with the "
                                          f"torch tier: {err}")
                 del out
@@ -755,8 +932,9 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
             raise AssertionError(f"{cfg.name}: output shape {tuple(out.shape)}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{cfg.name}: non-finite output")
-        if not out.is_floating_point() and not ((out >= 0) & (out < model.mask_token)).all():
-            raise AssertionError(f"{cfg.name}: tokens outside [0, {model.mask_token})")
+        limit = cfg.vocab if is_lm(cfg) else getattr(model, "mask_token", None)
+        if not out.is_floating_point() and not ((out >= 0) & (out < limit)).all():
+            raise AssertionError(f"{cfg.name}: tokens outside [0, {limit})")
         expected = {n: sum(r["launches"] for r in rows if r["kernel"] == n) for n in SOURCES}
         expected = {n: c for n, c in expected.items() if c}
         for name in kernels:
@@ -775,18 +953,33 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
             for k in per_kernel))
         del out
 
+    # -- 6b. one decode step, profiled (the autoregressive paths) ---------------
+    prof = None
+    if any(st in passes for st in ("decode", "ar_decode")):
+        with phase(cfg.name, "decode profile"), torch.inference_mode():
+            prof = decode_profile(model, cfg, tokens)
+            log(f"[decode] {cfg.name} one decode step: wall {prof['wall_ms']:.2f} ms, card busy "
+                f"{prof['device_busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+                f"{prof['launches_per_step']:.0f} launches; most device time (ms): "
+                + "; ".join(f"{k} {v:.2f}" for k, v in prof["top_ms"].items()))
+
     # -- 7. small input: the card's kernel path against the CPU plain path --------
     with phase(cfg.name, "small"):
-        rwl = reduced_workload(cfg)
+        rwl = reduced_workload(with_dtype(cfg, torch.float32))
         state = init_params(rwl.model, SEED)
-        toks_small = [t[: rwl.cfg.text.max_len] % rwl.cfg.text.vocab for t in tokens]
+        toks_small = [t[: min(rwl.max_prompt_len, 64)] % rwl.prompt_vocab for t in tokens]
         small = {dev: generate_states(rwl, rwl.load(state, dev), toks_small, dev)
                  for dev in ("cuda", "cpu")}
         (out_cuda, st_cuda), (out_cpu, st_cpu) = small["cuda"], small["cpu"]
-        if "parallel_decode" in st_cpu:  # the decoded tokens, before any decoder
-            tok = {dev: next(iter(st["parallel_decode"].values())).cpu()
+        decoded = next((st for st in ("parallel_decode", "ar_decode", "decode") if st in st_cpu),
+                       None)
+        if decoded is not None:  # the decoded tokens, before any decoder
+            # the LM's decode state holds its tokens under "out"; a token
+            # decode stage holds only its tokens
+            tok = {dev: (st[decoded]["out"] if decoded == "decode"
+                         else next(iter(st[decoded].values()))).cpu()
                    for dev, st in (("cuda", st_cuda), ("cpu", st_cpu))}
-            log(f"[small] reduced {rwl.cfg.name} parallel decode, card vs CPU plain: "
+            log(f"[small] reduced {rwl.cfg.name} {decoded}, card vs CPU plain: "
                 f"{int((tok['cuda'] != tok['cpu']).sum())} of {tok['cpu'].numel()} tokens differ")
             if not torch.equal(tok["cuda"], tok["cpu"]):
                 raise AssertionError(f"reduced {cfg.name}: tokens differ, card vs CPU")
@@ -799,8 +992,10 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
     del model
     torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches, summary=dict(
+        params_m=n_params / 1e6, dtype=dtype, init_s=init_s,
         passes=passes, generate_s=wall, stage_s=stage_s, step_ms=step_ms, tier_ms=tier_ms,
-        peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err, small_err=small_err,
+        peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err,
+        tier_vs_fp32_rel_l2=tier_f32_err, decode_profile=prof, small_err=small_err,
         launches=launches, kernels=per_kernel, **split))
 
 
@@ -824,11 +1019,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.suite import (
         IMAGEN,
+        LLAMA2_7B,
         MAKE_A_VIDEO,
         MUSE,
+        PARTI,
         PHENAKI,
         PROD_IMAGE,
         STABLE_DIFFUSION,
+        with_dtype,
     )
     from repro_torch.kernels import build
 
@@ -866,6 +1064,11 @@ def main() -> int:
                             kernels=("conv2d", "flash_attention")),
         PHENAKI.name: run_path(PHENAKI, tag="main-phenaki", record_steps=1, smi=smi,
                                kernels=("flash_attention", "temporal_flash_attention")),
+        LLAMA2_7B.name: run_path(LLAMA2_7B, tag="main-lm", record_steps=1, smi=smi,
+                                 kernels=("flash_attention",)),
+        # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB
+        PARTI.name: run_path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
+                             record_steps=1, smi=smi, kernels=("conv2d", "flash_attention")),
     }
     kernels = summarize(paths)
     paths_s = time.perf_counter() - t_all

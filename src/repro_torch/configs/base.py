@@ -1,0 +1,82 @@
+"""The LM config of the port (``repro.configs.base.LMConfig``), field for
+field with torch dtypes.
+
+Every field of the reference is kept, so a config copies across unchanged;
+the port builds dense decoder-only stacks only (LLaMA, and the image
+transformers' blocks).  ``family``, ``block_pattern``, ``moe``, ``ssm``,
+``encoder`` and ``window`` describe the other families: a model whose blocks
+are not all ``"dense"``, or that needs an encoder, qk-norm or M-RoPE, raises
+``NotImplementedError`` where it is built (:func:`check_dense`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    norm: str = "rmsnorm"  # rmsnorm | layernorm | nonparametric_ln
+    mlp_activation: str = "silu"
+    mlp_gated: bool = True
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_base: float = 10000.0
+    rope_pct: float = 1.0  # partial rotary (StableLM)
+    mrope_sections: tuple | None = None  # Qwen2-VL
+    tie_embeddings: bool = False
+    window: int | None = None  # local attention window (hybrid archs)
+    # per-layer block pattern, cycled to n_layers:
+    # "dense" | "moe" | "mamba2" | "rglru" | "local_attn"
+    block_pattern: tuple = ("dense",)
+    moe: Any = None  # the reference's MoESpec
+    ssm: Any = None  # SSMSpec
+    encoder: Any = None  # EncoderSpec (enc-dec, whisper)
+    embed_inputs: bool = False  # inputs are embeddings (vlm stub frontend)
+    dtype: Any = torch.float32
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def block_types(self) -> tuple:
+        """Expanded per-layer block types of length n_layers."""
+        pattern = self.block_pattern
+        types = [pattern[i % len(pattern)] for i in range(self.n_layers)]
+        if self.moe is not None and self.moe.first_k_dense:
+            for i in range(self.moe.first_k_dense):
+                types[i] = "dense"
+        return tuple(types)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder is not None
+
+
+def check_dense(cfg: LMConfig) -> None:
+    """Raise unless ``cfg`` is a dense decoder-only stack the port builds."""
+    missing = sorted({t for t in cfg.block_types() if t != "dense"})
+    for field, what in (("encoder", "enc-dec"), ("mrope_sections", "M-RoPE (VLM)"),
+                        ("embed_inputs", "embedding inputs (VLM)"), ("qk_norm", "qk-norm"),
+                        ("tie_embeddings", "tied embeddings")):
+        if getattr(cfg, field):
+            missing.append(what)
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        missing.append(f"norm {cfg.norm!r}")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the port builds dense "
+            "decoder-only stacks, and the other LM families come with their own slice")

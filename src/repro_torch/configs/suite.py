@@ -1,14 +1,38 @@
-"""The ported configs of the paper's suite (``repro.configs.suite``)."""
+"""The ported configs of the paper's suite (``repro.configs.suite``): the
+eight models of Table I plus the LLaMA2 baseline."""
 
 from __future__ import annotations
 
+import dataclasses
+
+import torch
+
 from repro_torch.configs import register
+from repro_torch.configs.base import LMConfig
 from repro_torch.models.ar_image import ARImageConfig
 from repro_torch.models.diffusion import DiffusionConfig, SRStage
 from repro_torch.models.text_encoder import TextEncoderConfig
 from repro_torch.models.ttv import PhenakiConfig, TTVConfig
 from repro_torch.models.unet import UNetConfig
 from repro_torch.models.vae import DecoderConfig, VQDecoderConfig
+
+# LLaMA2-7B, the text-generation baseline the paper compares against
+LLAMA2_7B = LMConfig(
+    name="llama2-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=32,
+    d_ff=11008,
+    vocab=32000,
+    norm="rmsnorm",
+    mlp_activation="silu",
+    mlp_gated=True,
+    dtype=torch.float32,
+    source="[arXiv:2307.09288; hf:meta-llama/Llama-2-7b]",
+)
+register(LLAMA2_7B)
 
 # Stable Diffusion (latent; Table I: 1.45B, attn res [4,2,1], mult [1,2,4,4],
 # 2 res blocks, 8 heads, embed dim 768)
@@ -114,6 +138,23 @@ MUSE = ARImageConfig(
 )
 register(MUSE)
 
+# Parti (Table I: 20B, 80 layers, model dim 4096, autoregressive)
+PARTI = ARImageConfig(
+    name="parti",
+    n_layers=80,
+    d_model=4096,
+    n_heads=32,
+    d_ff=16384,
+    image_vocab=8192,
+    image_tokens=1024,  # 32x32 ViT-VQGAN grid
+    decode="ar",
+    text=TextEncoderConfig(vocab=32128, max_len=128, n_layers=24, d_model=1024,
+                           n_heads=16, d_ff=4096),
+    vq=VQDecoderConfig(codebook_size=8192, token_hw=32, embed_dim=256),
+    source="[arXiv:2206.10789 / paper Table I]",
+)
+register(PARTI)
+
 # Make-A-Video (diffusion TTV: SD-like UNet + temporal attn/conv, 16 frames)
 MAKE_A_VIDEO = TTVConfig(
     name="make-a-video",
@@ -150,3 +191,21 @@ PHENAKI = PhenakiConfig(
     source="[arXiv:2210.02399]",
 )
 register(PHENAKI)
+
+
+def with_dtype(cfg, dtype):
+    """``cfg`` with every ``dtype`` field of its dataclass tree replaced
+    (``repro.configs.suite.with_dtype``): serving runs in bf16, and Parti's
+    87.6 GB of fp32 weights fit one 80 GB card only so (43.8 GB)."""
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
+    changes = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "dtype":
+            changes[f.name] = dtype
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            changes[f.name] = with_dtype(v, dtype)
+        elif isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
+            changes[f.name] = tuple(with_dtype(x, dtype) for x in v)
+    return dataclasses.replace(cfg, **changes) if changes else cfg

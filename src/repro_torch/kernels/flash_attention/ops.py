@@ -7,6 +7,11 @@ kernel (its plain version for a CPU tensor), ``torch`` the composite
 
 Shapes: q (B, Sq, H, D); k/v (B, Skv, KVH, D); out (B, Sq, H, D).
 
+``decode_attention(...)`` attends one new query token to a KV cache (the
+paper's Table III Decode regime).  The reference computes it in plain
+``jnp`` outside any Pallas kernel, so it is plain PyTorch on every tier
+here: no kernel replaces it.
+
 ``temporal_attention(...)`` attends across frames of (B, F, HW, H, D)
 operands: the ``kernel`` tier runs the temporal CUDA kernel in that layout,
 the ``torch`` tier the conventional permute to (B*HW, F, H, D), attention
@@ -38,6 +43,43 @@ def attention(
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     fn = _kernel.flash_attention if resolve_model_impl(impl) == "kernel" else _ref.attention_ref
     return fn(q, k, v, causal=causal, window=window, scale=scale, kv_offset=kv_offset)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KVH, D)
+    v_cache: torch.Tensor,
+    *,
+    kv_len,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Decode-phase attention, as ``repro.kernels.flash_attention.ops``'s:
+    fp32 scores, keys at or past ``kv_len`` (an int, or one length a request)
+    masked with ``NEG_INF``, softmax, the output cast back to q's dtype.
+
+    For an int ``kv_len`` (one length for the batch, as every caller here
+    has) only the first ``kv_len`` cache rows are read: a masked key's weight
+    is exactly 0 in fp32 (exp(-1e30 - max)), so the function is unchanged and
+    the cache read is the valid part only (half of Parti's, on average)."""
+    B, _, H, D = q.shape
+    one_len = isinstance(kv_len, int)
+    if one_len:
+        k_cache, v_cache = k_cache[:, :kv_len], v_cache[:, :kv_len]
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    group = H // KVH
+    scale = scale if scale is not None else D ** -0.5
+    # one batched product per request over strided views of the cache: (KVH,
+    # g, D) @ (KVH, D, S) reads K in place (an einsum over (B, KVH) would copy
+    # it to a contiguous layout first, 20 % of a LLaMA decode step)
+    qf = q.float().reshape(B, KVH, group, D)
+    kf, vf = k_cache.float(), v_cache.float()
+    s = torch.stack([torch.matmul(qf[b], kf[b].permute(1, 2, 0)) for b in range(B)]) * scale
+    if not one_len:  # every row read is valid otherwise
+        ok = torch.arange(S, device=q.device) < kv_len.to(q.device).reshape(-1, 1, 1, 1)
+        s = torch.where(ok, s, _ref.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.stack([torch.matmul(p[b], vf[b].permute(1, 0, 2)) for b in range(B)])
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def temporal_attention(

@@ -1,15 +1,18 @@
-"""Masked-transformer text-to-image (Muse), the port of
+"""Transformer text-to-image (Muse and Parti), the port of
 ``repro.models.ar_image``: a decoder-only transformer over image tokens,
-conditioned on a text encoder through cross-attention and sampled by
-parallel decoding (MaskGIT), then a VQ-GAN decoder to pixels.  Every decode
-step runs the whole constant-length token sequence (the paper's Fig. 7
-"Muse" profile).
+conditioned on a text encoder through cross-attention, then a VQ-GAN
+decoder to pixels.  Two decode disciplines, as the paper's Table III maps
+them:
+
+  * Muse: parallel decoding (MaskGIT).  Every step runs the whole
+    constant-length token sequence (the paper's Fig. 7 "Muse" profile).
+  * Parti: autoregressive decoding with a KV cache, one greedy token a step
+    through causal blocks (the LLM Decode regime; the sequence grows
+    linearly, Fig. 7 "Parti").
 
 The MaskGIT rule, which the reference writes out twice (``ar_image.py``
 ``decode_parallel`` and ``ttv.py`` ``decode_tokens``), is written once here
 (:func:`maskgit_step`, :func:`parallel_decode`); Phenaki calls it too.
-Parti's autoregressive decode (a causal backbone with a KV cache) comes
-with its own slice.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.layers.attention import AttentionCache
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.norms import LayerNorm
 from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
@@ -44,6 +49,14 @@ class ARImageConfig:
     family: str = "transformer_tti"
     dtype: Any = torch.float32
     source: str = ""
+
+    def lm_config(self) -> LMConfig:
+        """The LMConfig the image-transformer blocks are built from."""
+        return LMConfig(
+            name=self.name + "-img", family="dense", n_layers=self.n_layers,
+            d_model=self.d_model, n_heads=self.n_heads, n_kv_heads=self.n_heads,
+            d_ff=self.d_ff, vocab=self.image_vocab + 1,  # +1: the mask token (Muse)
+            norm="layernorm", mlp_activation="gelu", mlp_gated=False, dtype=self.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +115,8 @@ def parallel_decode(backbone: Callable, ctx: torch.Tensor, seq_len: int, steps: 
 
 class ARImageModel(Module):
     """Parameter tree ``{"text", "ctx_proj", "embed", "pos", "final_ln",
-    "head", "vq", "layer{i}"}``, as the reference's.  Inference is driven by
+    "head", "vq", "layer{i}"}``, as the reference's; the blocks are causal
+    for ``decode == "ar"``.  Inference is driven by
     ``ARImageWorkload.run_stage`` only."""
 
     def __init__(self, cfg: ARImageConfig):
@@ -116,9 +130,13 @@ class ARImageModel(Module):
         self.final_ln = LayerNorm(c.d_model, dtype=c.dtype)
         self.head = Dense(c.d_model, c.image_vocab, False, c.dtype)
         self.vq = VQGANDecoder(c.vq)
+        lm = c.lm_config()
         for i in range(c.n_layers):
-            self.add_module(f"layer{i}", Block(c.d_model, c.n_heads, c.d_ff, with_cross=True,
-                                               dtype=c.dtype))
+            self.add_module(f"layer{i}", Block(lm, "dense", causal=c.decode == "ar",
+                                               with_cross=True))
+
+    def blocks(self) -> list[Block]:
+        return [getattr(self, f"layer{i}") for i in range(self.cfg.n_layers)]
 
     @property
     def mask_token(self) -> int:
@@ -129,14 +147,13 @@ class ARImageModel(Module):
         return self.ctx_proj(self.text(tokens, impl=impl))
 
     def backbone(self, tokens, ctx, *, impl="auto"):
-        """tokens (B, S) -> logits (B, S, image_vocab), non-causal."""
-        if self.cfg.decode != "parallel":
-            raise NotImplementedError("the causal backbone of autoregressive decode (Parti) "
-                                      "is not ported yet")
+        """tokens (B, S) -> logits (B, S, image_vocab) over the whole
+        sequence (causal for Parti).  No positions reach the blocks, so their
+        RoPE is a no-op here, as in the reference."""
         x = self.embed(tokens)
         x = x + self.pos[: tokens.shape[1]].to(x.dtype)[None]
-        for i in range(self.cfg.n_layers):
-            x = getattr(self, f"layer{i}")(x, context=ctx, impl=impl)
+        for block in self.blocks():
+            x = block(x, context=ctx, impl=impl)
         return self.head(self.final_ln(x))
 
     def decode_parallel(self, ctx, steps: int, *, impl="auto"):
@@ -144,3 +161,40 @@ class ARImageModel(Module):
         projected text context (the workload passes its stage's steps)."""
         return parallel_decode(lambda t, cx: self.backbone(t, cx, impl=impl), ctx,
                                self.cfg.image_tokens, steps, self.mask_token)
+
+    # -- Parti: autoregressive decoding with a KV cache ----------------------
+
+    def ar_init(self, ctx):
+        """The decode loop's state for a projected context (B, L, d_model):
+        per layer a zero self-attention cache of ``image_tokens`` rows in the
+        model's dtype, and the cross-attention keys and values of ``ctx``,
+        computed once."""
+        B, S = ctx.shape[0], self.cfg.image_tokens
+        caches = [{"attn": b.attn.init_cache(B, S, dtype=self.cfg.dtype)} for b in self.blocks()]
+        cross = [b.cross_attn.project_kv(ctx) for b in self.blocks()]
+        return caches, cross
+
+    def ar_step(self, prev: torch.Tensor, t: int, caches: list, cross: list[AttentionCache]):
+        """Decode step ``t``: the previous token ``prev`` (B, 1) (BOS 0 at
+        t = 0) plus the position embedding ``pos[max(t - 1, 0)]``, as the
+        reference (so steps 0 and 1 both add ``pos[0]``), through every
+        block against its cache (written in place) -> logits (B, image_vocab)."""
+        x = self.embed(prev)
+        x = x + self.pos[max(t - 1, 0)].to(x.dtype)
+        for i, block in enumerate(self.blocks()):
+            x, caches[i] = block.decode(x, caches[i], t, cross_cache=cross[i])
+        return self.head(self.final_ln(x))[:, 0]
+
+    def decode_ar(self, ctx, steps: int | None = None):
+        """Parti greedy decoding of ``steps`` tokens (default all
+        ``image_tokens``; the workload passes its stage's steps) from a
+        projected text context.  Positions not decoded stay 0, as the
+        reference's token buffer starts.  Decode attention is plain PyTorch
+        on every tier, so no kernel tier applies."""
+        B, S = ctx.shape[0], self.cfg.image_tokens
+        tokens = torch.zeros((B, S), dtype=torch.int64, device=ctx.device)
+        caches, cross = self.ar_init(ctx)
+        for t in range(S if steps is None else steps):
+            prev = tokens[:, max(t - 1, 0): max(t - 1, 0) + 1]  # column 0 is still BOS 0 at t = 0
+            tokens[:, t] = self.ar_step(prev, t, caches, cross).argmax(-1)  # the first maximum
+        return tokens

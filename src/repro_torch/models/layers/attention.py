@@ -1,37 +1,111 @@
-"""Multi-head attention layer (``repro.models.layers.attention.Attention``):
-non-causal self-attention and cross-attention to a context, as the UNet, the
-text encoders and the parallel-decode transformers (Muse, Phenaki) use it.
+"""Multi-head (GQA) attention layer (``repro.models.layers.attention.Attention``):
+self-attention, causal or bidirectional, with RoPE; cross-attention to a
+context; decode of one token against a KV cache (the paper's Table III
+Decode regime).
 
-The reference builds the attention of Muse's transformer ``Block`` with
-``rope=True``, but ``ARImageModel.backbone`` passes ``positions=None``, so
-its RoPE is a no-op and this layer has none.  Causal/windowed masks, GQA,
-RoPE, qk-norm and decode with a KV cache come with Parti and the LM slice
-(the kernel already takes the masks and GQA)."""
+The forward pass dispatches through ``kernels.flash_attention.ops.attention``
+(the CUDA flash-attention kernel on the ``kernel`` tier, causal mask
+included); decode through ``ops.decode_attention``, plain PyTorch on every
+tier as in the reference.  RoPE rotates q and k only where ``positions`` are
+given: the image transformers' ``backbone`` passes none, so their RoPE is a
+no-op there, while ``decode`` always rotates at the cache position.
+
+``decode`` writes the new key and value into the cache in place (the
+reference's ``dynamic_update_slice`` returns a new cache; copying Parti's
+80 caches every token would move 2.7 GB a step) and returns the same cache.
+Local windows (with the ring-buffer cache), qk-norm and M-RoPE come with the
+LM families that use them (``configs.base.check_dense`` refuses those
+configs).
+"""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.basic import Dense
 from repro_torch.nn import Module
 
 
+class AttentionCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, KVH, D)
+    v: torch.Tensor
+    # the current length is the caller's (one for the whole batch)
+
+
 class Attention(Module):
-    def __init__(self, d_model: int, n_heads: int, head_dim: int, *, qkv_bias: bool = False,
-                 out_bias: bool = False, cross: bool = False, dtype=torch.float32):
+    def __init__(self, d_model: int, n_heads: int, head_dim: int, *, n_kv_heads: int | None = None,
+                 qkv_bias: bool = False, out_bias: bool = False, rope: bool = False,
+                 rope_base: float = 10000.0, rope_pct: float = 1.0, causal: bool = False,
+                 cross: bool = False, dtype=torch.float32):
         super().__init__()
         self.n_heads, self.head_dim, self.cross = n_heads, head_dim, cross
+        self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
+        self.rope, self.rope_base, self.rope_pct = rope, rope_base, rope_pct
+        self.causal, self.dtype = causal, dtype
         self.wq = Dense(d_model, n_heads * head_dim, qkv_bias, dtype)
-        self.wk = Dense(d_model, n_heads * head_dim, qkv_bias, dtype)
-        self.wv = Dense(d_model, n_heads * head_dim, qkv_bias, dtype)
+        self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype)
+        self.wv = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype)
         self.wo = Dense(n_heads * head_dim, d_model, out_bias, dtype)
 
-    def forward(self, x: torch.Tensor, *, context: torch.Tensor | None = None,
-                impl: str = "auto") -> torch.Tensor:
+    def _heads(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        return t.reshape(t.shape[0], t.shape[1], n, self.head_dim)
+
+    def _rope(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
+        if positions is None or not self.rope:
+            return x
+        return rope_lib.apply_rope(x, positions, base=self.rope_base, rotary_pct=self.rope_pct)
+
+    def project_kv(self, src: torch.Tensor) -> AttentionCache:
+        """Keys and values of ``src`` (B, S, d_model), unrotated: the cross
+        cache a decode loop computes once from its context."""
+        return AttentionCache(self._heads(self.wk(src), self.n_kv_heads),
+                              self._heads(self.wv(src), self.n_kv_heads))
+
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor | None = None,
+                context: torch.Tensor | None = None, impl: str = "auto",
+                return_kv: bool = False):
+        """x (B, S, d_model) -> (B, S, d_model); with ``return_kv`` also the
+        (rotated) keys and values, the cache a prefill leaves."""
         B, S, _ = x.shape
-        kv_src = context if self.cross else x
-        heads = lambda t: t.reshape(B, t.shape[1], self.n_heads, self.head_dim)  # noqa: E731
-        out = attn_ops.attention(heads(self.wq(x)), heads(self.wk(kv_src)),
-                                 heads(self.wv(kv_src)), impl=impl)
-        return self.wo(out.reshape(B, S, self.n_heads * self.head_dim))
+        q = self._heads(self.wq(x), self.n_heads)
+        k, v = self.project_kv(context if self.cross else x)
+        if not self.cross:
+            q, k = self._rope(q, positions), self._rope(k, positions)
+        out = attn_ops.attention(q, k, v, causal=self.causal and not self.cross, impl=impl)
+        y = self.wo(out.reshape(B, S, self.n_heads * self.head_dim))
+        return (y, AttentionCache(k, v)) if return_kv else y
+
+    # -- decode (one token against a cache) --------------------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> AttentionCache:
+        """Zeros (batch, max_len, KVH, D) beside the weights."""
+        shape = (batch, max_len, self.n_kv_heads, self.head_dim)
+        kw = dict(dtype=dtype or self.dtype, device=self.wq.kernel.device)
+        return AttentionCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+
+    def decode(self, x: torch.Tensor, cache: AttentionCache | None, cur_len: int, *,
+               cross_cache: AttentionCache | None = None):
+        """x (B, 1, d_model), ``cur_len`` tokens already in ``cache`` ->
+        (y, cache).  Self-attention rotates q and the new k at ``cur_len``,
+        writes k and v at row ``cur_len`` (cast to the cache's dtype) and
+        attends to ``cur_len + 1`` rows; cross-attention attends to all of
+        the precomputed ``cross_cache`` and leaves ``cache`` as it is."""
+        B = x.shape[0]
+        q = self._heads(self.wq(x), self.n_heads)
+        if self.cross:
+            if cross_cache is None:
+                raise ValueError("cross-attention decode needs a cross_cache")
+            out = attn_ops.decode_attention(q, cross_cache.k, cross_cache.v,
+                                            kv_len=cross_cache.k.shape[1])
+            return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache
+        k_new, v_new = self.project_kv(x)
+        pos = torch.full((B, 1), cur_len, dtype=torch.int32, device=x.device)
+        q, k_new = self._rope(q, pos), self._rope(k_new, pos)
+        cache.k[:, cur_len] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, cur_len] = v_new[:, 0].to(cache.v.dtype)
+        out = attn_ops.decode_attention(q, cache.k, cache.v, kv_len=cur_len + 1)
+        return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache

@@ -1,6 +1,8 @@
-"""Feed-forward block (``repro.models.layers.mlp``): the non-gated tanh-GELU
-MLP, biased in the text encoder and bias-free in the transformer ``Block``.
-Gated variants come with the LM slice."""
+"""Feed-forward blocks (``repro.models.layers.mlp``): the plain MLP
+``wo(act(wi x))`` (tanh-GELU, biased in the text encoder, bias-free in the
+image transformers' ``Block``) and the gated one ``wo(act(wg x) * wi x)``
+(SwiGLU with ``silu``: LLaMA), under the reference's keys ``wi``, ``wg``,
+``wo``."""
 
 from __future__ import annotations
 
@@ -10,13 +12,23 @@ import torch.nn.functional as F
 from repro_torch.models.layers.basic import Dense
 from repro_torch.nn import Module
 
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+}
+
 
 class MLP(Module):
-    def __init__(self, d_model: int, d_ff: int, use_bias: bool = False, dtype=torch.float32):
+    def __init__(self, d_model: int, d_ff: int, use_bias: bool = False, dtype=torch.float32, *,
+                 activation: str = "gelu", gated: bool = False):
         super().__init__()
+        self.act, self.gated = _ACTS[activation], gated
         self.wi = Dense(d_model, d_ff, use_bias, dtype)
         self.wo = Dense(d_ff, d_model, use_bias, dtype)
+        if gated:
+            self.wg = Dense(d_model, d_ff, use_bias, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # jax.nn.gelu defaults to the tanh approximation
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        h = self.wi(x)
+        h = self.act(self.wg(x)) * h if self.gated else self.act(h)
+        return self.wo(h)

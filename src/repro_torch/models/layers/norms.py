@@ -1,4 +1,5 @@
-"""LayerNorm and GroupNorm over channels-last tensors (``repro.models.layers.norms``).
+"""LayerNorm, RMSNorm and GroupNorm over channels-last tensors
+(``repro.models.layers.norms``).
 
 ``GroupNorm`` dispatches through ``kernels.groupnorm_silu.ops`` with the
 call site's tier: the CUDA kernel on the ``kernel`` tier, the composite
@@ -29,6 +30,21 @@ class LayerNorm(Module):
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.scale.float() + self.bias.float()
         return y.to(x.dtype)
+
+
+class RMSNorm(Module):
+    """x * rsqrt(mean(x^2) + eps) * scale, the variance in fp32 (LLaMA)."""
+
+    eps = 1e-6
+
+    def __init__(self, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.param("scale", (dim,), ones_init, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
 
 
 class GroupNorm(Module):

@@ -1,44 +1,181 @@
-"""The transformer ``Block`` of the parallel-decode image transformer
-(``repro.models.transformer.Block`` with ``block_type="dense"``): non-causal,
-optionally with cross-attention to a context.
+"""Transformer blocks and the decoder-only LM (``repro.models.transformer``),
+the dense branch: the image transformers' blocks (Muse, Parti) and the LLM
+baseline (LLaMA2-7B).
 
-The reference builds its blocks from an ``LMConfig``; the port takes the
-fields a dense block reads (LayerNorm, bias-free non-gated tanh-GELU MLP,
-``head_dim = d_model // n_heads``, no GQA).  The LM config, causal blocks and
-decode with a KV cache come with Parti and the LM slice.
+``Block`` is built from an ``LMConfig`` as the reference's: RMSNorm or
+LayerNorm, GQA self-attention with RoPE (causal or not), optional
+cross-attention to a context, and the plain or gated MLP; ``decode`` runs one
+token against the block's KV cache.  ``TransformerLM`` is the paper's Table
+III Prefill / Decode pair: ``prefill`` processes a prompt through the causal
+flash-attention kernel and leaves the caches padded to decode capacity,
+``decode_step`` runs one token against them.
+
+The LM keeps the reference's scanned parameter layout: each run of
+identical blocks is one group ``blocks.g{i}_{type}`` whose leaves carry a
+leading layer axis (``nn.stack_params``), so a JAX tree bridges unchanged;
+the Python loop over layers reads each layer's slice as a view
+(``nn.layer_views``).  MoE, SSM, RG-LRU, local-window, enc-dec and VLM
+blocks come with their own slices (``configs.base.check_dense``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers.attention import Attention
+from repro_torch.configs.base import LMConfig, check_dense
+from repro_torch.models.layers.attention import Attention, AttentionCache
+from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.mlp import MLP
-from repro_torch.models.layers.norms import LayerNorm
-from repro_torch.nn import Module
+from repro_torch.models.layers.norms import LayerNorm, RMSNorm
+from repro_torch.nn import Module, layer_views, stack_params
+
+
+def _norm(c: LMConfig) -> Module:
+    return (RMSNorm(c.d_model, dtype=c.dtype) if c.norm == "rmsnorm"
+            else LayerNorm(c.d_model, dtype=c.dtype))
 
 
 class Block(Module):
     """norm1 -> self-attention -> (norm_cross -> cross-attention) -> norm2 ->
     MLP, each with its residual, under the reference's keys ``norm1``,
-    ``attn``, ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp``."""
+    ``attn``, ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp``.  RoPE is
+    on (``rope=not cfg.is_encdec``), and rotates only where positions are
+    given."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, *, with_cross: bool = False,
-                 dtype=torch.float32):
+    def __init__(self, cfg: LMConfig, block_type: str = "dense", causal: bool = True,
+                 with_cross: bool = False):
         super().__init__()
+        check_dense(cfg)
+        if block_type != "dense":
+            raise NotImplementedError(f"{block_type!r} blocks come with their LM family")
+        c = cfg
         self.with_cross = with_cross
-        head_dim = d_model // n_heads
-        self.norm1 = LayerNorm(d_model, dtype=dtype)
-        self.attn = Attention(d_model, n_heads, head_dim, dtype=dtype)
-        self.norm2 = LayerNorm(d_model, dtype=dtype)
-        self.mlp = MLP(d_model, d_ff, dtype=dtype)
+        self.norm1 = _norm(c)
+        self.attn = Attention(
+            c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
+            qkv_bias=c.qkv_bias, rope=not c.is_encdec, rope_base=c.rope_base,
+            rope_pct=c.rope_pct, causal=causal, dtype=c.dtype)
+        self.norm2 = _norm(c)
+        self.mlp = MLP(c.d_model, c.d_ff, dtype=c.dtype, activation=c.mlp_activation,
+                       gated=c.mlp_gated)
         if with_cross:
-            self.cross_attn = Attention(d_model, n_heads, head_dim, cross=True, dtype=dtype)
-            self.norm_cross = LayerNorm(d_model, dtype=dtype)
+            self.cross_attn = Attention(
+                c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
+                qkv_bias=c.qkv_bias, cross=True, dtype=c.dtype)
+            self.norm_cross = _norm(c)
 
-    def forward(self, x: torch.Tensor, *, context: torch.Tensor | None = None,
-                impl: str = "auto") -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), impl=impl)
+    def forward(self, x: torch.Tensor, *, positions: torch.Tensor | None = None,
+                context: torch.Tensor | None = None, impl: str = "auto",
+                return_state: bool = False):
+        """x (B, S, d) -> x, or (x, {"attn": the layer's k, v}) with
+        ``return_state``."""
+        h = self.norm1(x)
+        if return_state:
+            a, kv = self.attn(h, positions=positions, impl=impl, return_kv=True)
+        else:
+            a = self.attn(h, positions=positions, impl=impl)
+        x = x + a
         if self.with_cross:
             x = x + self.cross_attn(self.norm_cross(x), context=context, impl=impl)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.mlp(self.norm2(x))
+        return (x, {"attn": kv}) if return_state else x
+
+    def decode(self, x: torch.Tensor, state: dict, cur_len: int, *,
+               cross_cache: AttentionCache | None = None):
+        """x (B, 1, d) against ``state["attn"]`` -> (x, state); the cache is
+        written in place."""
+        a, kv = self.attn.decode(self.norm1(x), state["attn"], cur_len)
+        x = x + a
+        if self.with_cross:
+            y, _ = self.cross_attn.decode(self.norm_cross(x), None, cur_len,
+                                          cross_cache=cross_cache)
+            x = x + y
+        return x + self.mlp(self.norm2(x)), {"attn": kv}
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    """0..S-1 for each row of tokens (B, S)."""
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+
+
+def _zero_cache(group: list, batch: int, cap: int) -> AttentionCache:
+    """Zeros (n, batch, cap, KVH, D) for the n layers of a group."""
+    a = group[0].attn
+    shape = (len(group), batch, cap, a.n_kv_heads, a.head_dim)
+    return AttentionCache(*(torch.zeros(shape, dtype=a.dtype, device=a.wq.kernel.device)
+                            for _ in range(2)))
+
+
+class TransformerLM(Module):
+    """Parameter tree ``{"embed", "final_norm", "lm_head", "blocks":
+    {"g0_dense": ...}}`` with stacked groups, as the reference's."""
+
+    def __init__(self, cfg: LMConfig):
+        super().__init__()
+        check_dense(cfg)
+        self.cfg = cfg
+        self.groups: list[tuple[str, int]] = []  # contiguous runs of one block type
+        for t in cfg.block_types():
+            if self.groups and self.groups[-1][0] == t:
+                self.groups[-1] = (t, self.groups[-1][1] + 1)
+            else:
+                self.groups.append((t, 1))
+        self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype)
+        self.final_norm = _norm(cfg)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype)
+        self.blocks = Module()
+        for i, (t, n) in enumerate(self.groups):
+            self.blocks.add_module(f"g{i}_{t}", stack_params(Block(cfg, t, causal=True), n))
+        self._views: tuple = (None, None)
+
+    def layers(self) -> list[list[Block]]:
+        """Each group's layers as views of their slices, rebuilt when the
+        parameters are replaced (a load) or their storage changes."""
+        groups = [getattr(self.blocks, f"g{i}_{t}") for i, (t, _) in enumerate(self.groups)]
+        key = tuple(p.data_ptr() for g in groups for p in g.parameters())
+        if self._views[0] != key:
+            self._views = (key, [layer_views(g, n) for g, (_, n) in zip(groups, self.groups)])
+        return self._views[1]
+
+    def forward(self, tokens: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        """Full causal forward: tokens (B, S) -> logits (B, S, vocab)."""
+        x = self.embed(tokens)
+        positions = _positions(tokens)
+        for group in self.layers():
+            for layer in group:
+                x = layer(x, positions=positions, impl=impl)
+        return self.lm_head(self.final_norm(x))
+
+    def prefill(self, tokens: torch.Tensor, *, impl: str = "auto",
+                max_len: int | None = None):
+        """Process a prompt (B, S) -> (last-position logits (B, 1, vocab),
+        caches): each group's keys and values stacked (n, B, cap, KVH, D),
+        padded with zeros to ``cap = max_len`` (default S), or cut to it, as
+        the reference's ``_to_capacity``."""
+        B, S = tokens.shape
+        cap = S if max_len is None else max_len
+        x = self.embed(tokens)
+        positions = _positions(tokens)
+        caches = []
+        for group in self.layers():
+            kv = _zero_cache(group, B, cap)
+            for j, layer in enumerate(group):
+                x, st = layer(x, positions=positions, impl=impl, return_state=True)
+                kv.k[j, :, :min(S, cap)] = st["attn"].k[:, :cap]
+                kv.v[j, :, :min(S, cap)] = st["attn"].v[:, :cap]
+            caches.append({"attn": kv})
+        logits = self.lm_head(self.final_norm(x[:, -1:]))
+        return logits, caches
+
+    def decode_step(self, token: torch.Tensor, caches: list, cur_len: int, *,
+                    impl: str = "auto"):
+        """token (B, 1) at position ``cur_len`` -> (logits (B, 1, vocab),
+        caches), the caches written in place."""
+        del impl  # decode attention is plain PyTorch on every tier
+        x = self.embed(token)
+        for group, cache in zip(self.layers(), caches):
+            for j, layer in enumerate(group):
+                x, _ = layer.decode(x, {"attn": AttentionCache(cache["attn"].k[j],
+                                                               cache["attn"].v[j])}, cur_len)
+        return self.lm_head(self.final_norm(x)), caches

@@ -9,13 +9,24 @@ so the port's ``state_dict`` keys are the JAX tree's paths joined by ``.``
 and a flattened JAX tree loads with no transpose (:func:`from_jax_params`).
 
 Layers are built on the ``meta`` device: building the full-size model costs
-no memory, and :func:`init_params` / :func:`materialize` give it values.
+no memory, and :func:`init_params` / :func:`materialize` give it values;
+:func:`init_module` draws the seeded values leaf by leaf straight onto the
+device, so the host never holds the whole state dict.
+
+A stack of identical layers keeps the reference's scanned layout: every
+parameter of the layer gains a leading layer axis under the layer's own keys
+(:func:`stack_params`, as ``repro.models.transformer._stack_defs``), and
+:func:`layer_views` gives each layer as a module whose parameters are views
+of its slice.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import copy
 import dataclasses
 import math
+import os
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -57,11 +68,27 @@ def scaled_init(fan_in_axes: tuple[int, ...] = (0,)) -> Callable:
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
-    """Declarative description of one parameter tensor."""
+    """Declarative description of one parameter tensor.  ``layers`` > 0
+    marks a stacked leaf: ``shape[0]`` is the layer axis, and each layer's
+    slice draws ``init`` at ``shape[1:]`` in turn from the leaf's generator
+    (the fan-in is the layer's, as the reference's ``vmap`` of the layer's
+    init gives it)."""
 
     shape: tuple[int, ...]
     init: Callable = normal_init()
     dtype: Any = torch.float32
+    layers: int = 0
+
+    def draw(self, gen: torch.Generator, out: torch.Tensor | None = None) -> torch.Tensor:
+        """The leaf's values from ``gen``, written into ``out`` (any device)
+        where given, one layer at a time for a stacked leaf."""
+        if not self.layers:
+            val = self.init(gen, self.shape, self.dtype)
+            return val if out is None else out.copy_(val)
+        out = torch.empty(self.shape, dtype=self.dtype) if out is None else out
+        for j in range(self.layers):
+            out[j].copy_(self.init(gen, self.shape[1:], self.dtype))
+        return out
 
 
 def _stable_hash(s: str) -> int:
@@ -91,11 +118,39 @@ class Module(torch.nn.Module):
         super().__init__()
         self.param_defs: dict[str, ParamDef] = {}
 
-    def param(self, name: str, shape: tuple, init: Callable, dtype) -> None:
+    def param(self, name: str, shape: tuple, init: Callable, dtype, layers: int = 0) -> None:
         shape = tuple(int(s) for s in shape)
-        self.param_defs[name] = ParamDef(shape, init, dtype)
+        self.param_defs[name] = ParamDef(shape, init, dtype, layers)
         self.register_parameter(name, torch.nn.Parameter(
             torch.empty(shape, dtype=dtype, device="meta"), requires_grad=False))
+
+
+def stack_params(module: torch.nn.Module, n: int) -> torch.nn.Module:
+    """``module`` (on ``meta``) with every declared parameter re-declared
+    with a leading axis of ``n`` layers, in place: the reference's scanned
+    layout (``blocks/g0_dense/attn/wq/kernel`` of shape ``(n, in, out)``),
+    so a JAX tree bridges with no restacking."""
+    for mod in module.modules():
+        for name, d in list(getattr(mod, "param_defs", {}).items()):
+            mod.param(name, (n, *d.shape), d.init, d.dtype, layers=n)
+    return module
+
+
+def layer_views(module: torch.nn.Module, n: int) -> list:
+    """The ``n`` layers of a module built by :func:`stack_params`: shallow
+    copies of its module tree whose parameters are plain attributes holding
+    views of slice ``j`` (no copy; nothing registered, so the views add no
+    ``state_dict`` keys)."""
+
+    def view(mod, j):
+        out = copy.copy(mod)
+        out.__dict__["_parameters"] = {}
+        for name, p in mod._parameters.items():
+            out.__dict__[name] = p[j]
+        out.__dict__["_modules"] = {k: view(c, j) for k, c in mod._modules.items()}
+        return out
+
+    return [view(module, j) for j in range(n)]
 
 
 def param_defs(module: torch.nn.Module) -> dict[str, ParamDef]:
@@ -107,15 +162,36 @@ def param_defs(module: torch.nn.Module) -> dict[str, ParamDef]:
     return out
 
 
+def _leaf_generator(seed: int, key: str) -> torch.Generator:
+    return torch.Generator().manual_seed(leaf_seed(seed, "/" + key.replace(".", "/")))
+
+
 def init_params(module: torch.nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded CPU values for every declared parameter: the leaf at key
     ``a.b.c`` draws from a generator seeded by ``leaf_seed(seed, "/a/b/c")``
     (the JAX package's leaf path).  The bits differ from ``jax.random``."""
-    out = {}
-    for key, d in param_defs(module).items():
-        gen = torch.Generator().manual_seed(leaf_seed(seed, "/" + key.replace(".", "/")))
-        out[key] = d.init(gen, d.shape, d.dtype)
-    return out
+    return {key: d.draw(_leaf_generator(seed, key)) for key, d in param_defs(module).items()}
+
+
+def init_module(module: torch.nn.Module, seed: int, device):
+    """``module`` (built on ``meta``) with the values of
+    ``init_params(module, seed)``, drawn leaf by leaf straight into tensors
+    on ``device``: the host holds one layer of each leaf in flight, never the
+    state dict (Parti's is 43.8 GB in bf16).  A thread per CPU core (at most
+    8) draws the leaves; each leaf keeps its own generator, so the values do
+    not depend on the order or the number of threads."""
+    dev = torch.device(device)
+    defs = param_defs(module)
+    state = {k: torch.empty(d.shape, dtype=d.dtype, device=dev) for k, d in defs.items()}
+
+    def fill(key):
+        defs[key].draw(_leaf_generator(seed, key), state[key])
+
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for f in [pool.submit(fill, k) for k in defs]:
+            f.result()
+    module.load_state_dict(state, strict=True, assign=True)
+    return module.eval()
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:

@@ -1,9 +1,9 @@
-"""Transformer text-to-image workload (Muse parallel decode), the port of
-``repro.workload.ar_image``.
+"""Transformer text-to-image workloads (Muse parallel decode, Parti
+autoregressive decode), the port of ``repro.workload.ar_image``.
 
-Muse's constant-length unmasking steps give a flat demand profile.  Parti's
-autoregressive decode keeps its stage plan here, but running it waits for
-its own slice (a causal backbone with a KV cache).
+Muse's constant-length unmasking steps give a flat demand profile; Parti's
+decode grows its KV cache by one token a step (Fig. 7, Parti panel), so its
+demand is a linear ramp.
 """
 
 from __future__ import annotations
@@ -47,14 +47,13 @@ class ARImageWorkload(GenerativeWorkload):
             Stage("vq_decoder", 1, cfg.vq.token_hw ** 2)))
 
     def run_stage(self, params, stage, state, gens, *, impl="auto"):
-        del gens  # greedy, confidence-ranked decoding draws nothing
+        del gens  # greedy and confidence-ranked decoding draw nothing
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}
         if stage.name == "parallel_decode":
             return {"img_tokens": params.decode_parallel(state["ctx"], stage.steps, impl=impl)}
         if stage.name == "ar_decode":
-            raise NotImplementedError("autoregressive decode (Parti) is not ported yet: it "
-                                      "comes with the Parti slice (KV cache, causal mask)")
+            return {"img_tokens": params.decode_ar(state["ctx"], stage.steps)}
         if stage.name == "vq_decoder":
             return {"out": params.vq(state["img_tokens"], impl=impl)}
         raise ValueError(f"unknown AR-image stage {stage.name!r}")

@@ -31,7 +31,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.nn import init_params, materialize
+from repro_torch.nn import init_module, materialize
 from repro_torch.nn.module import _stable_hash
 
 WORKLOAD_ROUTES = ("lm", "pod")
@@ -195,9 +195,10 @@ class GenerativeWorkload:
         raise NotImplementedError
 
     def init(self, seed: int, device="cuda") -> torch.nn.Module:
-        """The pipeline module with seeded parameters on ``device``."""
-        dev = resolve_device(device)
-        return self.load(init_params(self.model, seed), dev)
+        """The pipeline module with seeded parameters on ``device``: the
+        values of ``nn.init_params(self.model, seed)``, drawn leaf by leaf
+        onto the device (``nn.init_module``)."""
+        return init_module(copy.deepcopy(self.model), seed, resolve_device(device))
 
     def load(self, state: dict, device="cuda") -> torch.nn.Module:
         """The pipeline module with parameters from ``state`` on ``device``."""
@@ -208,6 +209,15 @@ class GenerativeWorkload:
 
     def cost_descriptor(self) -> CostDescriptor:
         raise NotImplementedError
+
+    @property
+    def prompt_vocab(self) -> int:
+        """Vocab to draw conditioning prompt ids from."""
+        return self.cfg.text.vocab
+
+    @property
+    def max_prompt_len(self) -> int:
+        return self.cfg.text.max_len
 
     def prepare_request(self, rid: int, tokens, *, max_new_tokens: int = 0,
                         slo_tier: str | None = None, deadline_ticks: int | None = None,
@@ -221,20 +231,23 @@ class GenerativeWorkload:
             deadline_ticks=deadline_ticks, meta=meta)
 
     def generate(self, params, tokens, seed: int, *, impl: str = "auto", device="cuda",
-                 rids=None, stage_impl: dict | None = None,
+                 max_new_tokens=0, rids=None, stage_impl: dict | None = None,
                  on_stage: Callable | None = None) -> torch.Tensor:
         """Batched full-pipeline inference: (B, S) tokens -> stacked output."""
         return torch.stack(self.generate_requests(
-            params, tokens, seed, impl=impl, device=device, rids=rids,
-            stage_impl=stage_impl, on_stage=on_stage))
+            params, tokens, seed, impl=impl, device=device, max_new_tokens=max_new_tokens,
+            rids=rids, stage_impl=stage_impl, on_stage=on_stage))
 
     @torch.inference_mode()
     def generate_requests(self, params, tokens, seed: int, *, impl: str = "auto",
-                          device="cuda", rids=None, stage_impl: dict | None = None,
+                          device="cuda", max_new_tokens=0, rids=None,
+                          stage_impl: dict | None = None,
                           on_stage: Callable | None = None) -> list:
         """The :meth:`generate` driver, returning per-request outputs.
-        ``on_stage(name, wall_s, batch)`` is called after each stage, with
-        the wall time up to a device synchronisation."""
+        ``max_new_tokens`` is the LM decode budget, one for the batch or one
+        a request (the other workloads ignore it).  ``on_stage(name, wall_s,
+        batch)`` is called after each stage, with the wall time up to a
+        device synchronisation."""
         stages, impls = self._stage_plan(impl, stage_impl)
         dev = resolve_device(device)
         p_dev = next(params.parameters()).device
@@ -245,7 +258,10 @@ class GenerativeWorkload:
         rids = list(range(B)) if rids is None else list(rids)
         if len(rids) != B:
             raise ValueError(f"got {len(rids)} rids for batch of {B}")
-        state = stack_states([self.init_stage_state(tokens[i], p_dev) for i in range(B)])
+        mnt = (list(max_new_tokens) if np.ndim(max_new_tokens)
+               else [int(max_new_tokens)] * B)
+        state = stack_states([self.init_stage_state(tokens[i], p_dev, max_new_tokens=mnt[i])
+                              for i in range(B)])
         for idx, stage in enumerate(stages):
             gens = [stage_generator(seed, rid, idx) for rid in rids]
             t0 = time.perf_counter()
@@ -260,7 +276,9 @@ class GenerativeWorkload:
         stages = self.cost_descriptor().stages
         return stages, resolve_stage_impls(stages, impl, stage_impl)
 
-    def init_stage_state(self, tokens, device) -> dict:
+    def init_stage_state(self, tokens, device, *, max_new_tokens: int = 0) -> dict:
+        """Per-request state entering the first stage (no batch axis)."""
+        del max_new_tokens  # the LM workload keeps it; pod workloads do not
         return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
 
     def run_stage(self, params, stage: Stage, state: dict, gens: list, *,

@@ -176,6 +176,10 @@ TRANSFORMER_ATTN_CASES = [
     (2, 256, 256, 16, 16, 128, False, None), (2, 256, 77, 16, 16, 128, False, None),
     (22, 256, 256, 24, 24, 64, False, None), (2, 2816, 77, 24, 24, 64, False, None),
 ]
+# The LM slice's causal flash attention (B, Sq, Skv, H, KVH, D, kv_offset):
+# LLaMA2-7B's prefill at full width, and a query block that starts past the
+# first keys (a chunked prefill: rows at kv_offset.. see keys 0..row)
+CAUSAL_ATTN_CASES = [(2, 2048, 2048, 32, 32, 128, 0), (1, 300, 364, 4, 4, 128, 64)]
 # GroupNorm (B, N, C, groups): 2 and 4 channels a group over rows that
 # overflow the cluster's shared memory (SR2's widths at 512 px)
 GN_SR_SHAPES = [(2, 262144, 64, 32), (2, 262144, 128, 32)]
@@ -497,6 +501,38 @@ def test_attention_cuda_transformer_shapes_match_plain(h100, case, dtype):
     out = kernel.flash_attention(q, k, v, scale=case[5] ** -0.5)
     gold = t_fa_ref.attention_ref(q, k, v, scale=case[5] ** -0.5)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", CAUSAL_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_causal_lm_shapes_match_plain(h100, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=29))
+    kw = dict(scale=case[5] ** -0.5, causal=True, kv_offset=case[6])
+    n = build.launches["flash_attention"]
+    out = kernel.flash_attention(q, k, v, **kw)
+    assert build.launches["flash_attention"] == n + 1
+    gold = t_fa_ref.attention_ref(q, k, v, **kw)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_attention_on_the_card_matches_the_cpu(h100, dtype):
+    """Decode attention (plain PyTorch on every tier) at Parti's width, one
+    length for the batch and one a request: the card against the CPU."""
+    from repro_torch.kernels.flash_attention import ops
+
+    rng = np.random.default_rng(31)
+    q = rng.standard_normal((2, 1, 32, 128), np.float32)
+    kc, vc = rng.standard_normal((2, 2, 1024, 32, 128), np.float32)
+    for kv_len in (1, 700, torch.tensor([1024, 513])):
+        got = ops.decode_attention(*_on(h100, dtype, q, kc, vc), kv_len=kv_len if isinstance(
+            kv_len, int) else kv_len.to(h100))
+        gold = ops.decode_attention(*_on("cpu", dtype, q, kc, vc), kv_len=kv_len)
+        _close(got.cpu(), gold, F32 if dtype == torch.float32 else BF16)
 
 
 @pytest.mark.gpu

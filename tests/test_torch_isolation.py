@@ -42,12 +42,15 @@ def test_checked_files_include_the_ttv_slice():
     port = ROOT / "src" / "repro_torch"
     for rel in ("models/ttv.py", "workload/ttv.py", "kernels/flash_attention/flash_attention.py",
                 "kernels/conv2d/conv2d.py", "models/layers/conv.py", "models/transformer.py",
-                "models/ar_image.py", "workload/ar_image.py"):
+                "models/ar_image.py", "workload/ar_image.py", "configs/base.py",
+                "models/layers/rope.py", "workload/lm.py"):
         assert port / rel in PORT_FILES
 
 
-@pytest.mark.parametrize("name", ["muse", "phenaki"])
-def test_workload_builds_without_jax(name):
+@pytest.mark.parametrize("name,stage", [
+    ("muse", "parallel_decode"), ("phenaki", "parallel_decode"), ("llama2-7b", "decode"),
+    ("parti", "ar_decode")])
+def test_workload_builds_without_jax(name, stage):
     """A process that never imported ``jax`` or ``repro`` builds the
     full-size workload (on ``meta``: nothing is allocated)."""
     code = (
@@ -55,7 +58,8 @@ def test_workload_builds_without_jax(name):
         "from repro_torch.configs import get_config\n"
         "from repro_torch.workload import workload_for\n"
         f"wl = workload_for(get_config({name!r}))\n"
-        "assert wl.cost_descriptor().stages[1].name == 'parallel_decode'\n"
+        f"assert wl.cost_descriptor().stages[1].name == {stage!r}\n"
+        "assert all(p.device.type == 'meta' for p in wl.model.parameters())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

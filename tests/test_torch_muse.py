@@ -157,7 +157,8 @@ def test_block_matches_jax(tiers):
     jax_impl, torch_impl = tiers
     cfg = j_reduced_workload(j_get_config("muse")).cfg
     jblock = j_transformer.Block(cfg.lm_config(), "dense", causal=False, with_cross=True)
-    jp, tblock = _bridge(t_transformer.Block(cfg.d_model, cfg.n_heads, cfg.d_ff,
+    tcfg = reduced_workload(get_config("muse")).cfg
+    jp, tblock = _bridge(t_transformer.Block(tcfg.lm_config(), "dense", causal=False,
                                              with_cross=True))
     rng = np.random.default_rng(5)
     for path in ("norm1.bias", "norm_cross.scale", "norm2.bias"):
@@ -310,13 +311,17 @@ def test_muse_stage_plan():
 
 
 def test_autoregressive_decode_waits_for_the_parti_slice():
+    """The Parti slice has landed: the reduced Muse config with ``decode="ar"``
+    runs its ``ar_decode`` stage (causal blocks, a KV cache) through
+    ``generate``, and ``parti`` is registered (``tests/test_torch_parti.py``
+    holds both against the reference)."""
     twl = workload_for(dataclasses.replace(reduced_workload(get_config("muse")).cfg,
                                            decode="ar"))
     model = twl.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Parti"):
-        twl.generate(model, np.zeros((1, 16), np.int32), 0, device="cpu")
-    with pytest.raises(KeyError):
-        get_config("parti")
+    assert all(b.attn.causal for b in model.blocks())
+    out = twl.generate(model, np.zeros((1, 16), np.int32), 0, device="cpu")
+    assert tuple(out.shape) == (1, 8, 8, 3) and torch.isfinite(out).all()
+    assert get_config("parti").decode == "ar"
 
 
 def test_full_size_params_bridge_without_transpose():
