@@ -25,8 +25,8 @@ Eight paths, each at full published width with random weights from a seed,
     image tokens one at a time against a KV cache, then a VQ-GAN decoder to
     256x256; flash attention in the text encoder, conv2d in the decoder.
 
-Phases 3-7 run for each path in turn; each passes or raises, and nothing is
-caught:
+Phases 3-7 run for each path in turn, phase 8 on three of them; each passes
+or raises, and nothing is caught:
 
   1. device   -- the card's name, count and power limit; capability (9, 0)
   2. build    -- compile the hand-written CUDA kernels from csrc/ (nvcc);
@@ -62,6 +62,23 @@ caught:
                  launches per step, and the ops that take most of it
   7. small    -- the reduced config's generate, in fp32, on the card against
                  the CPU plain path; decoded tokens must be equal
+  8. serve    -- the serving engine at full width, on the path's model
+                 (``[serve]`` lines): Stable Diffusion through the launcher
+                 ``python -m repro_torch.launch.serve`` in a subprocess (16
+                 requests, cascade, poisson arrivals; its stats held to the
+                 schema), then 4 prompts on the pod and cascade routes and
+                 through ``generate``, held to one another; Imagen on the
+                 cascade route with the SR stages on the torch tier, held to
+                 ``generate`` on the same tiers; LLaMA2-7B as the paper's
+                 workload (2048-token prompts, 64 new tokens): a backlog of
+                 16 on the lm route, then 4 on the lm and cascade routes,
+                 greedy and sampled (T = 0.8), tokens equal across routes,
+                 runs and ``generate``.  Each serving run sets the launch
+                 counts to 0 just before and reads them just after: each
+                 stage's launches must be the recorded plan times the
+                 stage's batches (none on a torch-tier stage); each request's
+                 wall latency runs from the start of its arrival tick to the
+                 end of the tick that returned it
 
 Each phase logs its wall time and the peak device memory it reached.  Phase
 2 logs the registers and spills of the flash-attention instances the paths
@@ -80,6 +97,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -833,7 +851,286 @@ def generate_states(wl, model, tokens, device):
     return out, states
 
 
-def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> dict:
+# ---------------------------------------------------------------------------
+# Phase 8: serving through the engine (Stable Diffusion, Imagen, LLaMA2-7B)
+# ---------------------------------------------------------------------------
+
+# Routes compute one function, in batches of other sizes: on the card
+# conv2d's split-K plan follows the grid, so a pod of 4 and a stage batch of
+# 2 sum in other orders, through 50 DDIM steps and the VAE.
+SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
+SERVE_WIDTH = 32  # the engine's first bucket: every prompt is padded to it
+SD_LAUNCHER_REQUESTS = 16
+# LLaMA served as the paper's workload: 2048-token prompts (one bucket) and
+# 64 new tokens; a backlog of 16 for the rate and the latency percentiles,
+# 4 of them (one batch) for the route, sampling and generate checks
+LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
+
+
+class StageLaunches:
+    """Each kernel's launches by stage while installed on ``wl.run_stage``
+    (the counts are the wrappers', read before and after each stage)."""
+
+    def __init__(self, wl):
+        self.wl = wl
+        self.by_stage = collections.defaultdict(collections.Counter)
+
+    def __enter__(self):
+        from repro_torch.kernels import build
+
+        run = self.wl.run_stage
+
+        def counted(params, stage, *a, **k):
+            before = collections.Counter(build.launches)
+            out = run(params, stage, *a, **k)
+            after = collections.Counter(build.launches)
+            after.subtract(before)
+            self.by_stage[stage.name].update(+after)
+            return out
+
+        self.wl.run_stage = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.wl.run_stage
+
+
+def stage_plan(rows) -> dict:
+    """Each stage's launches of each kernel in one main-path generate (the
+    recorded plan; a stage's launches do not depend on its batch)."""
+    plan = collections.defaultdict(collections.Counter)
+    for r in rows:
+        for st, n in r["launches_by_stage"].items():
+            plan[st][r["kernel"]] += n
+    return plan
+
+
+def serve(tag, wl, model, prompts, rows, *, arrivals=None, max_new=0, **cfg_kw) -> dict:
+    """``prompts`` through a ``ServeEngine`` on the card: every count set to
+    0 just before, read just after; the stats checked against the schema;
+    each stage's launches equal to the plan times the stage's batches (none
+    on a stage of the torch tier), and each kernel of the kernel tier
+    launched.  Returns the results and the numbers of the ``[serve]``
+    line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tiers import resolve_model_impl
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.telemetry import validate_engine_stats
+    from repro_torch.workload.base import resolve_stage_impls
+
+    eng = ServeEngine(wl, model, ServeConfig(**cfg_kw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with StageLaunches(wl) as counted:
+        build.launches.clear()  # counts start at 0 just before the serving run
+        t0 = time.perf_counter()
+        arrive = [0 if arrivals is None else arrivals[rid] for rid in range(len(prompts))]
+        for rid, prompt in enumerate(prompts):
+            eng.submit(rid, prompt, max_new, arrival_tick=arrive[rid])
+        # eng.run(), one tick a step, with each request's wall latency: from
+        # the start of its arrival tick to the end of the tick that returned
+        # it (outputs come back on the host, so the card is done)
+        results, tick_t0, lat_wall = {}, [], {}
+        while eng.pending():
+            tick_t0.append(time.perf_counter())
+            for rid, res in eng.step():
+                results[rid] = res
+                lat_wall[rid] = time.perf_counter() - tick_t0[arrive[rid]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(build.launches)  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    s = eng.stats
+    validate_engine_stats(s, eng.route)
+    if sorted(results) != list(range(len(prompts))):
+        raise AssertionError(f"{tag}: served {sorted(results)}")
+    if eng.route == "cascade":
+        batches = {ex.name: ex.batches for ex in eng.pipeline.executors}
+        tiers = {ex.name: ex.effective_impl for ex in eng.pipeline.executors}
+    else:
+        batches = {n: st["dispatches"] for n, st in s["stages"].items()}
+        tiers = {st.name: resolve_model_impl(im) for st, im in zip(eng.cost.stages, (
+            resolve_stage_impls(eng.cost.stages, eng.serve_cfg.impl, eng.serve_cfg.stage_impl)))}
+    plan = stage_plan(rows)
+    for st, n in batches.items():
+        want = ({k: c * n for k, c in plan[st].items()} if tiers[st] == "kernel" else {})
+        if dict(counted.by_stage.get(st, {})) != want:
+            raise AssertionError(f"{tag} stage {st} ({tiers[st]}, {n} batches): launches "
+                                 f"{dict(counted.by_stage.get(st, {}))}, plan x batches {want}")
+    for name in {k for st, t in tiers.items() if t == "kernel" for k in plan[st]}:
+        if not launches.get(name):
+            raise AssertionError(f"{tag}: {name} was not launched")
+    lat = s["request_latency_s"]
+    lw = np.array(list(lat_wall.values()))
+    out = dict(route=eng.route, requests=len(results), wall_s=wall, rps=len(results) / wall,
+               engine_rps=s["requests_per_s"], tick_s=s["clock"]["tick_seconds"],
+               ticks=s["clock"]["ticks"], e2e_p50_s=lat["p50"], e2e_p95_s=lat["p95"],
+               wall_e2e_p50_s=float(np.percentile(lw, 50)),
+               wall_e2e_p95_s=float(np.percentile(lw, 95)), wall_e2e_max_s=float(lw.max()),
+               peak_gib=peak / 2**30, launches=launches, batches=batches,
+               stage_s={n: st["exec_s"] for n, st in s["stages"].items()})
+    if eng.route == "lm":
+        new_tokens = sum(len(v) for v in results.values())
+        out.update(new_tokens=new_tokens, tokens_per_s=new_tokens / wall,
+                   decode_ms_per_token=1e3 * s["decode_s"] / (max_new * batches["decode"]),
+                   prefill_s_per_batch=s["prefill_s"] / batches["prefill"])
+    if eng.route == "cascade":
+        c = s["cascade"]
+        out.update(stage_batches={n: st["mean_batch"] for n, st in c["stages"].items()},
+                   stage_tiers=tiers,
+                   queue_wait_ticks={n: (st["queue_wait_ticks"]["p50"],
+                                         st["queue_wait_ticks"]["p95"])
+                                     for n, st in c["stages"].items()},
+                   stage_s={n: st["exec_s"] for n, st in c["stages"].items()},
+                   modeled_throughput_gain=c["hbm"]["throughput_gain"])
+    log(f"[serve] {tag} ({eng.route}): {len(results)} requests in {wall:.2f} s, "
+        f"{out['rps']:.3f} req/s (engine clock {out['engine_rps']:.3f}); tick "
+        f"{out['tick_s']:.3f} s calibrated over {out['ticks']} ticks; e2e over "
+        f"{len(results)} requests, wall p50 {out['wall_e2e_p50_s']:.3f} s p95 "
+        f"{out['wall_e2e_p95_s']:.3f} s max {out['wall_e2e_max_s']:.3f} s (engine clock p50 "
+        f"{out['e2e_p50_s']:.3f} s p95 {out['e2e_p95_s']:.3f} s); peak {out['peak_gib']:.2f} GiB; "
+        f"batches {batches}; stage s " + ", ".join(f"{n} {v:.3f}" for n, v in out["stage_s"].items())
+        + f"; launches {launches}")
+    if eng.route == "lm":
+        log(f"[serve] {tag}: {out['new_tokens']} new tokens, {out['tokens_per_s']:.1f} tokens/s; "
+            f"prefill {out['prefill_s_per_batch']:.3f} s a batch, decode "
+            f"{out['decode_ms_per_token']:.2f} ms a token")
+    if eng.route == "cascade":
+        log(f"[serve] {tag} stages: " + "; ".join(
+            f"{n} [{tiers[n]}] {batches[n]} batches, mean {out['stage_batches'][n]:.2f}, "
+            f"queue wait p50/p95 {w[0]:.0f}/{w[1]:.0f} ticks, {out['stage_s'][n]:.3f} s"
+            for n, w in out["queue_wait_ticks"].items())
+            + f"; modeled stage-batched vs lockstep throughput {out['modeled_throughput_gain']:.3f}x")
+    return dict(results=results, report=out)
+
+
+def eng_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def padded(wl, prompts) -> list:
+    """Prompts zero-padded as the cascade route pads them in the first
+    bucket (at most the workload's prompt length): every route then encodes
+    the same tokens."""
+    width = min(SERVE_WIDTH, wl.max_prompt_len)
+    return [np.pad(p, (0, width - len(p))) for p in prompts]
+
+
+def serve_stable_diffusion(wl, model, rows) -> dict:
+    """The launcher in a subprocess (16 requests, cascade, poisson arrivals),
+    then 4 of its prompts on the pod and cascade routes and through
+    ``generate`` with the same rids, held to one another."""
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.serving import ArrivalTrace
+    from repro_torch.telemetry import validate_engine_stats
+
+    stats_rel = "build/chip_smoke/serve_stable-diffusion.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "stable-diffusion",
+           "--requests", str(SD_LAUNCHER_REQUESTS), "--route", "cascade", "--arrivals", "poisson",
+           "--arrival-rate", "0.5", "--stats-json", stats_rel]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    launcher_s = time.perf_counter() - t0
+    (OUT_DIR / "serve_stable-diffusion.log").write_text(proc.stdout + proc.stderr)
+    for line in proc.stdout.splitlines():
+        log(f"[serve] launcher | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the launcher exited {proc.returncode}: {proc.stderr[-3000:]}")
+    launched = json.loads((ROOT / stats_rel).read_text())
+    validate_engine_stats(launched, "cascade")
+    log(f"[serve] launcher: rc 0 in {launcher_s:.1f} s (process, init, build load, "
+        f"{SD_LAUNCHER_REQUESTS} requests); stats valid; {launched['requests_per_s']:.3f} req/s "
+        f"on its clock")
+
+    prompts = padded(wl, draw_prompts(wl, 4, SEED))
+    ticks = ArrivalTrace("poisson", rate=0.5, seed=SEED).ticks(4)
+    pod = serve("stable-diffusion pod", wl, model, prompts, rows)
+    cas = serve("stable-diffusion cascade", wl, model, prompts, rows, arrivals=ticks,
+                route="cascade", pod_size=2)
+    gen = wl.generate(model, np.stack(prompts), SEED, device=eng_device(model),
+                      rids=[0, 1, 2, 3]).cpu()
+    errs = {}
+    for name, run in (("pod", pod), ("cascade", cas)):
+        out = torch.stack([run["results"][r] for r in range(4)])
+        errs[name] = max_err(out, gen)
+        assert_close(f"stable-diffusion {name} route vs generate", out, gen, SERVE_TOL)
+    log(f"[serve] stable-diffusion routes vs generate (2 x 4 images {tuple(gen.shape[1:])}): "
+        f"max abs diff pod {errs['pod']:.3e}, cascade {errs['cascade']:.3e} (max |out| "
+        f"{gen.abs().max().item():.3e}; tolerance {SERVE_TOL})")
+    return dict(launcher_s=launcher_s, launcher_rps=launched["requests_per_s"],
+                pod=pod["report"], cascade=cas["report"], route_max_abs_err=errs)
+
+
+def serve_imagen(wl, model, rows) -> dict:
+    """2 requests on the cascade route, the SR stages on the torch tier and
+    the base on the kernels; pods of 1, so each stage batches its own way.
+    The served images are held to ``generate`` of the same rids on the same
+    tiers."""
+    from repro_torch.launch.serve import draw_prompts
+
+    prompts = padded(wl, draw_prompts(wl, 2, SEED))
+    run = serve("imagen cascade sr=torch", wl, model, prompts, rows,
+                route="cascade", pod_size=1, stage_impl={"sr": "torch"})
+    out = torch.stack([run["results"][r] for r in range(2)])
+    if tuple(out.shape[1:]) != output_shape(wl.cfg)[1:] or not torch.isfinite(out).all():
+        raise AssertionError(f"imagen served {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    gen = wl.generate(model, np.stack(prompts), SEED, device=eng_device(model), rids=[0, 1],
+                      stage_impl={"sr": "torch"}).cpu()
+    err = max_err(out, gen)
+    log(f"[serve] imagen cascade vs generate (2 images {tuple(gen.shape[1:])}, sr=torch): max "
+        f"abs diff {err:.3e} (max |out| {gen.abs().max().item():.3e}; tolerance {SERVE_TOL})")
+    assert_close("imagen cascade route vs generate", out, gen, SERVE_TOL)
+    return dict(cascade=run["report"], route_max_abs_err=err)
+
+
+def serve_llama(wl, model, rows) -> dict:
+    """The paper's LM workload served: 16 prompts of 2048 tokens, 64 new
+    tokens each, on the lm route (one bucket of 2048, batches of 4), all
+    queued at tick 0.  Then the first 4 (the first batch) on the cascade
+    route, and at temperature 0.8 on both routes and again on the lm route:
+    greedy tokens equal across routes and to ``generate``'s, sampled tokens
+    equal across routes and runs and not the greedy ones."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, wl.prompt_vocab, size=LM_PROMPT) for _ in range(LM_REQUESTS)]
+    checked = prompts[:LM_CHECKED]
+    kw = dict(max_new=LM_NEW, buckets=(LM_PROMPT,))
+    backlog = serve(f"llama2-7b lm T=0 backlog of {LM_REQUESTS}", wl, model, prompts, rows, **kw)
+    runs = {(0.0, "cascade"): serve("llama2-7b cascade T=0", wl, model, checked, rows,
+                                    route="cascade", **kw)}
+    for route in ("auto", "cascade"):
+        runs[0.8, route] = serve(f"llama2-7b {route} T=0.8", wl, model, checked, rows,
+                                 route=route, temperature=0.8, **kw)
+    again = serve("llama2-7b auto T=0.8, again", wl, model, checked, rows, temperature=0.8, **kw)
+
+    def toks(run):
+        return {r: [int(t) for t in v] for r, v in run["results"].items()}
+
+    lm_greedy = {r: v for r, v in toks(backlog).items() if r < LM_CHECKED}
+    gen = wl.generate(model, np.stack(checked), SEED, device=eng_device(model),
+                      rids=list(range(LM_CHECKED)), max_new_tokens=LM_NEW).cpu()
+    greedy = {r: gen[r].tolist() for r in range(LM_CHECKED)}
+    sampled = toks(runs[0.8, "auto"])
+    checks = {"greedy lm == generate": lm_greedy == greedy,
+              "greedy cascade == generate": toks(runs[0.0, "cascade"]) == greedy,
+              "T=0.8 lm == cascade": sampled == toks(runs[0.8, "cascade"]),
+              "T=0.8 lm == lm again": sampled == toks(again),
+              "T=0.8 != greedy": sampled != greedy,
+              f"{LM_NEW} tokens each": all(len(v) == LM_NEW for v in toks(backlog).values())}
+    log(f"[serve] llama2-7b tokens: " + "; ".join(f"{k}: {v}" for k, v in checks.items())
+        + f"; greedy rid 0 {greedy[0][:16]}...; T=0.8 rid 0 {sampled[0][:16]}...")
+    if not all(checks.values()):
+        raise AssertionError(f"llama2-7b serving: {checks}")
+    out = {f"lm T=0 backlog of {LM_REQUESTS}": backlog["report"]}
+    out.update({f"{route} T={temp}": run["report"] for (temp, route), run in runs.items()})
+    out["auto T=0.8, again"] = again["report"]
+    return out
+
+
+def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
+             serve_fn=None) -> dict:
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
     from repro_torch.nn import init_params
@@ -989,9 +1286,15 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str) -> d
         assert_close(f"reduced {cfg.name} generate", out_cuda.cpu(), out_cpu,
                      dict(rtol=1e-4, atol=1e-4))
 
+    # -- 8. serving through the engine (SD, Imagen, LLaMA) ------------------------
+    served = None
+    if serve_fn is not None:
+        with phase(cfg.name, "serve"):
+            served = serve_fn(wl, model, rows)
+
     del model
     torch.cuda.empty_cache()
-    return dict(rows=rows, launches=launches, summary=dict(
+    return dict(rows=rows, launches=launches, summary=dict(serve=served,
         params_m=n_params / 1e6, dtype=dtype, init_s=init_s,
         passes=passes, generate_s=wall, stage_s=stage_s, step_ms=step_ms, tier_ms=tier_ms,
         peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err,
@@ -1054,10 +1357,12 @@ def main() -> int:
     spatial = ("conv2d", "flash_attention", "groupnorm_silu")
     paths = {
         STABLE_DIFFUSION.name: run_path(
-            STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi, kernels=spatial),
+            STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi, kernels=spatial,
+            serve_fn=serve_stable_diffusion),
         MAKE_A_VIDEO.name: run_path(
             MAKE_A_VIDEO, tag="main-ttv", record_steps=2, smi=smi, kernels=tuple(SOURCES)),
-        IMAGEN.name: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi, kernels=spatial),
+        IMAGEN.name: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi, kernels=spatial,
+                              serve_fn=serve_imagen),
         PROD_IMAGE.name: run_path(
             PROD_IMAGE, tag="main-prod", record_steps=1, smi=smi, kernels=spatial),
         MUSE.name: run_path(MUSE, tag="main-muse", record_steps=1, smi=smi,
@@ -1065,7 +1370,7 @@ def main() -> int:
         PHENAKI.name: run_path(PHENAKI, tag="main-phenaki", record_steps=1, smi=smi,
                                kernels=("flash_attention", "temporal_flash_attention")),
         LLAMA2_7B.name: run_path(LLAMA2_7B, tag="main-lm", record_steps=1, smi=smi,
-                                 kernels=("flash_attention",)),
+                                 kernels=("flash_attention",), serve_fn=serve_llama),
         # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB
         PARTI.name: run_path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
                              record_steps=1, smi=smi, kernels=("conv2d", "flash_attention")),

@@ -28,6 +28,13 @@ def get_config(name: str):
     return _REGISTRY[name]
 
 
+def list_configs() -> list[str]:
+    """The registered ``--arch`` names."""
+    from repro_torch.configs import suite  # noqa: F401  (registers the suite)
+
+    return sorted(_REGISTRY)
+
+
 def reduced(cfg: LMConfig) -> LMConfig:
     """Tiny same-family config for CPU tests (``repro.configs.reduced``):
     the dense branch; the other families' reductions come with them."""

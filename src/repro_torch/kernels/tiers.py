@@ -23,6 +23,9 @@ _MODEL_IMPL = {
 }
 
 
+TIERS = ("kernel", "torch")  # what ``resolve_model_impl`` gives
+
+
 def resolve_model_impl(impl: str | None) -> str:
     key = impl or "auto"
     if key not in _MODEL_IMPL:

@@ -46,8 +46,8 @@ class ARImageWorkload(GenerativeWorkload):
             Stage("text_encoder", 1, cfg.text.max_len), decode,
             Stage("vq_decoder", 1, cfg.vq.token_hw ** 2)))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto"):
-        del gens  # greedy and confidence-ranked decoding draw nothing
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+        del gens, temperature  # greedy and confidence-ranked decoding draw nothing
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}
         if stage.name == "parallel_decode":

@@ -19,6 +19,14 @@ run on ``device="cuda"`` unless the caller passes another device.
 Per-request randomness follows the reference's contract: a stage's noise
 for a request depends only on ``(seed, rid, stage_index)``
 (:func:`stage_generator`), never on the batch it rides in.
+
+Routes, as the reference's taxonomy: the *workload* route
+(``WORKLOAD_ROUTES``) names the scheduler family a workload's requests
+belong to, ``"lm"`` (bucketed prefill + decode) or ``"pod"`` (staggered
+denoise pods); the *serve* route (``SERVE_ROUTES``) is how
+``serving.ServeEngine`` runs them, those two or ``"cascade"`` (the
+stage-level pipeline).  Every serve route runs the one stage loop,
+``generate_requests``.
 """
 
 from __future__ import annotations
@@ -31,10 +39,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels.tiers import resolve_model_impl
 from repro_torch.nn import init_module, materialize
 from repro_torch.nn.module import _stable_hash
 
 WORKLOAD_ROUTES = ("lm", "pod")
+SERVE_ROUTES = ("lm", "pod", "cascade")
 SLO_TIERS = ("interactive", "batch")
 
 
@@ -48,6 +58,18 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
     return dev
+
+
+def params_device(params) -> torch.device:
+    """The device of a materialised pipeline module's parameters."""
+    return next(params.parameters()).device
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU): a host
+    clock read after it measures the work, not its launch."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +119,10 @@ class GenRequest:
         if self.deadline_ticks is not None and self.deadline_ticks <= 0:
             raise ValueError(f"deadline_ticks must be > 0 or None, got {self.deadline_ticks}")
 
+    @property
+    def prompt_len(self) -> int:
+        return int(np.shape(self.tokens)[-1])
+
 
 @dataclasses.dataclass(frozen=True)
 class Stage:
@@ -143,19 +169,36 @@ class CostDescriptor:
 # ---------------------------------------------------------------------------
 
 
-def stack_states(states: list) -> dict:
-    """Per-request (unbatched) state dicts -> one batched state."""
-    return {k: stack_states([s[k] for s in states]) if isinstance(states[0][k], dict)
-            else torch.stack([s[k] for s in states]) for k in states[0]}
+def tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of equally shaped trees of dicts, lists
+    and tuples (a NamedTuple such as ``AttentionCache`` keeps its type), as
+    ``jax.tree.map``."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        out = [tree_map(fn, *xs) for xs in zip(*trees)]
+        if isinstance(t, list):
+            return out
+        return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+    return fn(*trees)
 
 
-def split_state(state: dict, n: int) -> list:
+def tree_leaves(tree) -> list:
+    leaves = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def stack_states(states: list):
+    """Per-request (unbatched) states -> one batched state, the batch axis
+    first in every leaf."""
+    return tree_map(lambda *xs: torch.stack(xs), *states)
+
+
+def split_state(state, n: int) -> list:
     """Batched state -> n per-request (unbatched) views."""
-
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
-
-    return [pick(state, i) for i in range(n)]
+    return [tree_map(lambda x: x[i], state) for i in range(n)]
 
 
 def resolve_stage_impls(stages, impl: str, stage_impl: dict | None) -> list[str]:
@@ -231,26 +274,28 @@ class GenerativeWorkload:
             deadline_ticks=deadline_ticks, meta=meta)
 
     def generate(self, params, tokens, seed: int, *, impl: str = "auto", device="cuda",
-                 max_new_tokens=0, rids=None, stage_impl: dict | None = None,
+                 max_new_tokens=0, temperature: float = 0.0, rids=None,
+                 stage_impl: dict | None = None,
                  on_stage: Callable | None = None) -> torch.Tensor:
         """Batched full-pipeline inference: (B, S) tokens -> stacked output."""
         return torch.stack(self.generate_requests(
             params, tokens, seed, impl=impl, device=device, max_new_tokens=max_new_tokens,
-            rids=rids, stage_impl=stage_impl, on_stage=on_stage))
+            temperature=temperature, rids=rids, stage_impl=stage_impl, on_stage=on_stage))
 
     @torch.inference_mode()
     def generate_requests(self, params, tokens, seed: int, *, impl: str = "auto",
-                          device="cuda", max_new_tokens=0, rids=None,
-                          stage_impl: dict | None = None,
+                          device="cuda", max_new_tokens=0, temperature: float = 0.0,
+                          rids=None, stage_impl: dict | None = None,
                           on_stage: Callable | None = None) -> list:
-        """The :meth:`generate` driver, returning per-request outputs.
-        ``max_new_tokens`` is the LM decode budget, one for the batch or one
-        a request (the other workloads ignore it).  ``on_stage(name, wall_s,
-        batch)`` is called after each stage, with the wall time up to a
-        device synchronisation."""
+        """The loop behind :meth:`generate`, returning per-request outputs:
+        the one stage loop of every serve route.  ``max_new_tokens`` is the LM
+        decode budget, one for the batch or one a request (the other
+        workloads ignore it); ``temperature`` the LM sampling temperature (0:
+        greedy).  ``on_stage(name, wall_s, batch)`` is called after each
+        stage, with the wall time up to a device synchronisation."""
         stages, impls = self._stage_plan(impl, stage_impl)
         dev = resolve_device(device)
-        p_dev = next(params.parameters()).device
+        p_dev = params_device(params)
         if p_dev.type != dev.type or dev.index not in (None, p_dev.index):
             raise ValueError(f"params live on {p_dev}, generate asked for {dev}")
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
@@ -265,16 +310,19 @@ class GenerativeWorkload:
         for idx, stage in enumerate(stages):
             gens = [stage_generator(seed, rid, idx) for rid in rids]
             t0 = time.perf_counter()
-            state = self.run_stage(params, stage, state, gens, impl=impls[idx])
+            state = self.run_stage(params, stage, state, gens, impl=impls[idx],
+                                   temperature=temperature)
             if on_stage is not None:
-                if p_dev.type == "cuda":
-                    torch.cuda.synchronize(p_dev)
+                synchronize(p_dev)
                 on_stage(stage.name, time.perf_counter() - t0, B)
         return [self.stage_output(s) for s in split_state(state, B)]
 
     def _stage_plan(self, impl: str, stage_impl: dict | None):
+        """(stages, the tier each stage runs): the requested tiers as
+        ``resolve_model_impl`` maps them, ``kernel`` or ``torch``."""
         stages = self.cost_descriptor().stages
-        return stages, resolve_stage_impls(stages, impl, stage_impl)
+        return stages, [resolve_model_impl(i)
+                        for i in resolve_stage_impls(stages, impl, stage_impl)]
 
     def init_stage_state(self, tokens, device, *, max_new_tokens: int = 0) -> dict:
         """Per-request state entering the first stage (no batch axis)."""
@@ -282,10 +330,17 @@ class GenerativeWorkload:
         return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
 
     def run_stage(self, params, stage: Stage, state: dict, gens: list, *,
-                  impl: str = "auto") -> dict:
+                  impl: str = "auto", temperature: float = 0.0) -> dict:
         """Execute one ``stage`` over batched ``state``; ``gens`` holds one
-        :func:`stage_generator` per request."""
+        :func:`stage_generator` per request; ``temperature`` is the sampling
+        temperature of token-sampling stages (the others ignore it)."""
         raise NotImplementedError
+
+    def stage_group_key(self, stage: Stage, state: dict):
+        """Extra batch-compatibility key of ``stage`` over an unbatched
+        ``state``, beyond its shapes and dtypes (the LM's decode merges
+        requests at one cache position only).  None: shapes only."""
+        return None
 
     def stage_output(self, state: dict):
         return state["out"]

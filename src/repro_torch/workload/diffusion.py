@@ -115,7 +115,8 @@ class DiffusionWorkload(GenerativeWorkload):
             stages.append(Stage("vae", 1, cfg.image_size ** 2))
         return CostDescriptor(arch=cfg.name, route=self.route, stages=tuple(stages))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto"):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+        del temperature  # denoising samples no tokens
         cfg = self.cfg
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}

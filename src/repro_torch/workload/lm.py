@@ -3,10 +3,18 @@ the port of ``repro.workload.lm``.
 
 The paper's text baseline (LLaMA2-7B) in the Table III Prefill / Decode
 regime, as two stages: ``prefill`` processes the prompt once and leaves the
-KV caches padded to ``S + max_new``; ``decode`` runs ``max_new`` greedy
-steps from ``cur = S``.  The paper's workload is a 2048-token prompt and 64
-new tokens.  Sampling at ``temperature > 0`` (the reference's seeded
-categorical draw per request) comes with the serving slice.
+KV caches padded to ``S + max_new``; ``decode`` runs ``max_new`` steps from
+``cur = S``.  The paper's workload is a 2048-token prompt and 64 new tokens.
+
+The next token is the greedy argmax at temperature 0, and above it a
+Gumbel-max draw (an exact sample of ``softmax(logits / T)``) per request: a
+request's ``t``-th sampled token of a stage takes the ``t``-th draw of its
+own ``stage_generator(seed, rid, stage_index)`` (prefill: stage 0, decode:
+stage 1), drawn on the CPU, so a seed gives the same draws on every device
+and in every batch.  A stage draws its whole budget as one block and sends
+it to the device once; the draws are sequential, so row ``t`` does not
+depend on the budget.  The reference's ``jax.random.categorical`` bits are not
+reproduced: sampled tokens agree with it in distribution only.
 """
 
 from __future__ import annotations
@@ -16,7 +24,13 @@ import torch
 from repro_torch.configs import reduced
 from repro_torch.configs.base import LMConfig
 from repro_torch.models.transformer import TransformerLM
-from repro_torch.workload.base import CostDescriptor, GenerativeWorkload, Stage, register_workload
+from repro_torch.workload.base import (
+    CostDescriptor,
+    GenerativeWorkload,
+    Stage,
+    register_workload,
+    tree_map,
+)
 
 TRACE_PREFILL = 2048  # paper workload: a 2k prompt
 TRACE_DECODE = 64  # + 64 generated tokens
@@ -42,12 +56,9 @@ class LMWorkload(GenerativeWorkload):
         return TRACE_PREFILL
 
     def generate(self, params, tokens, seed: int, *, max_new_tokens=TRACE_DECODE,
-                 temperature: float = 0.0, **kw) -> torch.Tensor:
+                 **kw) -> torch.Tensor:
         """``GenerativeWorkload.generate`` with the paper's 64-token decode
-        budget as the default; greedy only."""
-        if temperature > 0.0:
-            raise NotImplementedError("sampling at temperature > 0 (a seeded categorical draw "
-                                      "per request) comes with the serving slice")
+        budget as the default."""
         return super().generate(params, tokens, seed, max_new_tokens=max_new_tokens, **kw)
 
     def cost_descriptor(self) -> CostDescriptor:
@@ -62,36 +73,64 @@ class LMWorkload(GenerativeWorkload):
                 "max_new": torch.tensor(int(max_new_tokens), device=device)}
 
     @staticmethod
-    def _next_token(logits: torch.Tensor) -> torch.Tensor:
-        """Greedy: the first maximum of each row of (B, V), as ``jnp.argmax``."""
-        return logits.argmax(-1)[:, None]
+    def _gumbel(gens: list, steps: int, vocab: int, device) -> torch.Tensor:
+        """(B, steps, V) Gumbel noise ``-log(-log(u))``: row ``t`` of request
+        ``b`` from the ``t``-th V uniforms of ``gens[b]``, drawn on the CPU
+        as one block and copied to ``device`` once."""
+        u = torch.stack([torch.rand(steps, vocab, generator=g) for g in gens])
+        gumbel = -torch.log(-torch.log(u))
+        if torch.device(device).type == "cuda":  # asynchronous: the host runs on ahead
+            gumbel = gumbel.pin_memory().to(device, non_blocking=True)
+        return gumbel
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto"):
-        del gens  # greedy decoding draws nothing
+    @staticmethod
+    def _next_token(logits: torch.Tensor, temperature: float = 0.0,
+                    gumbel: torch.Tensor | None = None) -> torch.Tensor:
+        """(B, V) logits -> (B, 1) tokens.  Greedy at temperature 0: the
+        first maximum of each row, as ``jnp.argmax``.  Above it, Gumbel-max:
+        the argmax of ``logits / T`` plus ``gumbel``, one (B, V) row of
+        :meth:`_gumbel`."""
+        if temperature <= 0.0:
+            return logits.argmax(-1)[:, None]
+        return (logits.float() / temperature + gumbel).argmax(-1)[:, None]
+
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
         if stage.name == "prefill":
             toks = state["tokens"]
             B, S = toks.shape
             cap = S + int(state["max_new"].max())
             logits, caches = params.prefill(toks, impl=impl, max_len=cap)
-            # decode starts at the prompt's end.  The caches stay layer-first
-            # (n, B, ...): the decode stage takes them whole, and no pipeline
-            # splits this state per request yet (the reference moves the
-            # batch axis first for its cascade)
-            return {"max_new": state["max_new"], "next_tok": self._next_token(logits[:, -1]),
-                    "cur": torch.full((B,), S, device=toks.device), "caches": caches}
+            gumbel = (self._gumbel(gens, 1, logits.shape[-1], toks.device)[:, 0]
+                      if temperature > 0.0 else None)
+            # decode starts at the prompt's end (the bucket's, on the lm
+            # route).  The caches (n, B, cap, ...) go batch-axis first as views,
+            # so that a pipeline can split and restack them per request
+            return {"max_new": state["max_new"],
+                    "next_tok": self._next_token(logits[:, -1], temperature, gumbel),
+                    "cur": torch.full((B,), S, device=toks.device),
+                    "caches": tree_map(lambda a: a.movedim(1, 0), caches)}
         if stage.name == "decode":
-            caches = state["caches"]
+            # layer-first views again: decode_step writes each row in place
+            caches = tree_map(lambda a: a.movedim(0, 1), state["caches"])
             nxt, cur = state["next_tok"], int(state["cur"][0])
+            steps = int(state["max_new"].max())
+            gumbel = (self._gumbel(gens, steps, self.cfg.vocab, nxt.device)
+                      if temperature > 0.0 else None)
             out = []
-            for _ in range(int(state["max_new"].max())):
+            for t in range(steps):
                 out.append(nxt)
                 logits, caches = params.decode_step(nxt, caches, cur, impl=impl)
-                nxt = self._next_token(logits[:, 0])
+                nxt = self._next_token(logits[:, 0], temperature,
+                                       None if gumbel is None else gumbel[:, t])
                 cur += 1
             tokens = (torch.cat(out, dim=1) if out
                       else torch.zeros((nxt.shape[0], 0), dtype=torch.int64, device=nxt.device))
             return {"max_new": state["max_new"], "out": tokens}
         raise ValueError(f"unknown LM stage {stage.name!r}")
+
+    def stage_group_key(self, stage, state):
+        # decode batches may only merge requests at the same cache position
+        return int(state["cur"]) if stage.name == "decode" else None
 
     def stage_output(self, state: dict):
         return state["out"][: int(state["max_new"])]

@@ -71,7 +71,8 @@ class MakeAVideoWorkload(GenerativeWorkload):
         stages.append(Stage("temporal_denoise", tp, cfg.frames * hw * hw, demand=temporal))
         return CostDescriptor(arch=cfg.name, route=self.route, stages=tuple(stages))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto"):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+        del temperature  # denoising samples no tokens
         cfg = self.cfg
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}
@@ -128,8 +129,8 @@ class PhenakiWorkload(GenerativeWorkload):
             Stage("text_encoder", 1, cfg.text.max_len),
             Stage("parallel_decode", cfg.parallel_steps, S, demand=(S,))))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto"):
-        del gens  # confidence-ranked unmasking draws nothing
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+        del gens, temperature  # confidence-ranked unmasking draws nothing
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}
         if stage.name == "parallel_decode":

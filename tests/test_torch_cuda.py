@@ -563,3 +563,62 @@ def test_groupnorm_cuda_sr_widths_re_read_their_rows(h100, shape, dtype):
     out = kernel.groupnorm_silu(xt, s, b, groups=G, silu=True)
     gold = t_gn_ref.groupnorm_silu_ref(xt, s, b, groups=G, silu=True)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+# ---------------------------------------------------------------------------
+# Serving: the engine's routes on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SMALL = dict(rtol=1e-4, atol=1e-4)  # chip_smoke.py phase 7: reduced generate, card vs CPU
+
+
+def _served(wl, state, dev, route, prompts, **kw):
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    eng = ServeEngine(wl, wl.load(state, dev), ServeConfig(max_batch=2, buckets=(8,),
+                                                           route=route, **kw))
+    for rid, p in enumerate(prompts):
+        eng.submit(rid, p, max_new_tokens=6)
+    return eng.run()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["auto", "cascade"])
+@pytest.mark.parametrize("name", ["tti", "ttv"])
+def test_tiny_cascade_served_on_the_card_matches_the_cpu(h100, name, route):
+    """The tiny SR and TTV cascades on the pod and cascade routes: the card's
+    kernels against the CPU's plain versions, within phase 7's tolerance
+    relative to the output's scale."""
+    from repro_torch.configs.tiny import TINY_TTI_CASCADE, TINY_TTV_CASCADE
+    from repro_torch.nn import init_params
+    from repro_torch.workload import workload_for
+
+    wl = workload_for({"tti": TINY_TTI_CASCADE, "ttv": TINY_TTV_CASCADE}[name])
+    state = init_params(wl.model, 0)
+    rng = np.random.default_rng(40)
+    prompts = [rng.integers(0, wl.prompt_vocab, 8) for _ in range(4)]
+    card, cpu = (_served(wl, state, dev, route, prompts) for dev in ("cuda", "cpu"))
+    assert sorted(card) == sorted(cpu) == [0, 1, 2, 3]
+    for rid in range(4):
+        gold = cpu[rid].float()
+        scale = max(1.0, gold.abs().max().item())
+        np.testing.assert_allclose(card[rid].float().numpy(), gold.numpy(), rtol=SMALL["rtol"],
+                                   atol=SMALL["atol"] * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("route", ["auto", "cascade"])
+def test_reduced_llama_served_on_the_card_gives_the_cpu_tokens(h100, route, temperature):
+    from repro_torch.configs import get_config
+    from repro_torch.nn import init_params
+    from repro_torch.workload import reduced_workload
+
+    wl = reduced_workload(get_config("llama2-7b"))
+    state = init_params(wl.model, 0)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, wl.prompt_vocab, n) for n in (5, 8, 3, 7)]
+    card, cpu = (_served(wl, state, dev, route, prompts, temperature=temperature)
+                 for dev in ("cuda", "cpu"))
+    assert {r: list(map(int, v)) for r, v in card.items()} == {
+        r: list(map(int, v)) for r, v in cpu.items()}

@@ -43,7 +43,10 @@ def test_checked_files_include_the_ttv_slice():
     for rel in ("models/ttv.py", "workload/ttv.py", "kernels/flash_attention/flash_attention.py",
                 "kernels/conv2d/conv2d.py", "models/layers/conv.py", "models/transformer.py",
                 "models/ar_image.py", "workload/ar_image.py", "configs/base.py",
-                "models/layers/rope.py", "workload/lm.py"):
+                "models/layers/rope.py", "workload/lm.py", "telemetry/metrics.py",
+                "telemetry/spans.py", "telemetry/chrome_trace.py", "telemetry/schema.py",
+                "serving/arrivals.py", "serving/scheduler.py", "serving/engine.py",
+                "pipeline/stage.py", "pipeline/cascade.py", "launch/serve.py"):
         assert port / rel in PORT_FILES
 
 
@@ -60,6 +63,25 @@ def test_workload_builds_without_jax(name, stage):
         f"wl = workload_for(get_config({name!r}))\n"
         f"assert wl.cost_descriptor().stages[1].name == {stage!r}\n"
         "assert all(p.device.type == 'meta' for p in wl.model.parameters())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=300)
+
+
+def test_serve_engine_runs_without_jax():
+    """A process that never imported ``jax`` or ``repro`` serves reduced
+    Stable Diffusion through the port's ``ServeEngine`` on the CPU."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.serving import ServeConfig, ServeEngine\n"
+        "from repro_torch.workload import reduced_workload\n"
+        "wl = reduced_workload(get_config('stable-diffusion'))\n"
+        "eng = ServeEngine(wl, wl.init(0, 'cpu'), ServeConfig(route='cascade'))\n"
+        "eng.submit(0, np.arange(5))\n"
+        "assert tuple(eng.run()[0].shape) == (8, 8, 3)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
