@@ -21,8 +21,9 @@ Eight paths, each at full published width with random weights from a seed,
     prefill through flash attention, then 64 greedy decode steps against a
     KV cache);
   - Parti, autoregressive text-to-image in bf16 (21.9 B parameters, 87.6 GB
-    in fp32, do not fit the card): 80 causal layers of d 4096 decode 1024
-    image tokens one at a time against a KV cache, then a VQ-GAN decoder to
+    in fp32, do not fit the card): 80 causal layers of d 4096 decode image
+    tokens one at a time against a KV cache (the main path decodes the first
+    256 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
     256x256; flash attention in the text encoder, conv2d in the decoder.
 
 Phases 3-7 run for each path in turn, phase 8 on three of them; each passes
@@ -60,6 +61,20 @@ or raises, and nothing is caught:
   6b. decode  -- the autoregressive paths: three decode steps timed, then
                  profiled (torch.profiler): the card's busy time and
                  launches per step, and the ops that take most of it
+  6c. characterize -- (``[characterize]`` lines) the port's full-width event
+                 stream traced on ``meta`` (``core.characterize``): category
+                 shares modeled on the card's peaks, self-attention sequence
+                 lengths, regime; one pass of each iterative stage (a denoise
+                 step of each network, a backbone pass, the LM prefill; the
+                 decode steps of 6b) under torch.profiler, read by
+                 ``core.profiler_analysis``: device ms by category (``other``
+                 included), busy/idle share, launches, the temporal share of
+                 attention, the modeled shares beside; a stage whose pass
+                 shows no launch of a hand kernel the main path launched
+                 there fails; for Stable Diffusion and Make-A-Video's
+                 keyframe step, the torch tier's step against the kernel
+                 tier's beside ``amdahl.flash_speedup`` of the naive and
+                 auto streams
   7. small    -- the reduced config's generate, in fp32, on the card against
                  the CPU plain path; decoded tokens must be equal
   8. serve    -- the serving engine at full width, on the path's model
@@ -109,19 +124,21 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
+sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, TF32
-# and bf16 on the tensor cores (dense), HBM3 bandwidth.  The GEMM-shaped
-# kernels run on the tensor cores: for fp32 inputs their bound takes the rate
-# of the fp32-accurate math they run, 3xTF32 (three TF32 MMAs per product:
-# conv2d, the temporal conv, flash attention); for bf16 inputs the card's
-# bf16 peak, though the kernels still run TF32 MMAs there (two per product
-# for conv2d, 1.5 for flash attention).  GroupNorm and temporal attention
-# compute in fp32 on the CUDA cores.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+from repro_torch.core.perf_model import H100_SXM, H100_SXM_FP32, H100_SXM_TF32_FLOPS  # noqa: E402
+
+# The card's published peaks (``core.perf_model``).  The GEMM-shaped kernels
+# run on the tensor cores: for fp32 inputs their bound takes the rate of the
+# fp32-accurate math they run, 3xTF32 (three TF32 MMAs per product: conv2d,
+# the temporal conv, flash attention); for bf16 inputs the card's bf16 peak,
+# though the kernels still run TF32 MMAs there (two per product for conv2d,
+# 1.5 for flash attention).  GroupNorm and temporal attention compute in fp32
+# on the CUDA cores.
+PEAK_FP32_FLOPS = H100_SXM_FP32.peak_flops
+PEAK_TF32_FLOPS = H100_SXM_TF32_FLOPS
+PEAK_BF16_FLOPS = H100_SXM.peak_flops
+PEAK_BYTES = H100_SXM.hbm_bw
 F32 = dict(rtol=2e-5, atol=2e-5)  # the repo's kernel tolerance (tests/test_kernels.py)
 TEMPORAL_F32 = dict(rtol=3e-5, atol=3e-5)  # the repo's temporal attention tolerance
 STATS = dict(rtol=2e-4, atol=2e-4)
@@ -755,49 +772,193 @@ def is_lm(cfg) -> bool:
     return isinstance(cfg, LMConfig)
 
 
-def decode_profile(model, cfg, tokens, steps: int = 3) -> dict:
-    """Where a decode step's time goes, for the autoregressive paths: the
-    wall time of ``steps`` steps (LLaMA at the prompt's end, Parti at image
-    token 512, half its decode), then the same steps under
-    ``torch.profiler``: the card's busy time per step (the sum of its kernels
-    and copies), the launches per step and the ops that take most of it."""
+def host_ms(fn, passes: int = 1, rounds: int = 3) -> float:
+    """Median over ``rounds`` of the host-clock ms a pass of ``passes``
+    calls takes, up to a synchronisation (the window a pass holds the card;
+    it follows the host core's speed where the pass is launch-bound)."""
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / passes * 1e3)
+    return sorted(out)[len(out) // 2]
+
+
+def profile_passes(fn, passes: int = 1) -> dict:
+    """``fn`` once to warm up, its window (:func:`host_ms`), then ``passes``
+    calls under ``torch.profiler``, read by ``core.profiler_analysis`` per
+    pass: the card's busy ms and idle share over the window, launches,
+    device ms by tracer category (``other`` included) and by top scope, the
+    kernels that take most of it, and the pass's peak device memory."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import profiler_analysis as pa
+
+    fn()
+    window_ms = host_ms(fn, passes)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes):
+            fn()
+        torch.cuda.synchronize()
+    memory = pa.memory_summary()
+    hist = pa.op_histogram(prof, passes)
+    cats = pa.by_category(prof, passes)
+    return dict(pa.busy(prof, window_ms, passes), category_ms=cats, shares=pa.shares(cats),
+                scope_ms=pa.by_scope(prof, passes, depth=1), kernels=hist,
+                peak_gib=memory["peak_allocated"] / 2**30,
+                top_ms={k: v["ms"] for k, v in list(hist.items())[:6]})
+
+
+def decode_profile(model, cfg, tokens, steps: int = 3) -> dict:
+    """Where a decode step's time goes, for the autoregressive paths:
+    ``steps`` steps (LLaMA at the prompt's end, Parti at image token 512,
+    half its decode) through :func:`profile_passes`."""
     prompts = torch.as_tensor(np.stack(tokens), device="cuda")
     if is_lm(cfg):
         S = prompts.shape[1]
         _, caches = model.prefill(prompts, max_len=S + steps + 1)
         tok = prompts[:, -1:]
 
-        def step(i):
-            return model.decode_step(tok, caches, S + i)
+        def step():
+            return model.decode_step(tok, caches, S)
     else:
         caches, cross = model.ar_init(model.encode_text(prompts))
         prev = torch.zeros((2, 1), dtype=torch.int64, device="cuda")
 
-        def step(i):
-            return model.ar_step(prev, cfg.image_tokens // 2 + i, caches, cross)
+        def step():
+            return model.ar_step(prev, cfg.image_tokens // 2, caches, cross)
 
-    step(0)
-    torch.cuda.synchronize()
+    return profile_passes(step, steps)
+
+
+# The hand kernels' names in a profile (csrc/*.cu), by wrapper
+KERNEL_SYMBOL = {"conv2d": "conv2d_kernel", "flash_attention": "fa_kernel",
+                 "groupnorm_silu": "gn_kernel",
+                 "temporal_flash_attention": "temporal_attention_kernel",
+                 "temporal_conv1d": "conv2d_kernel"}
+# the stage each phase-5 network call is one pass of
+TIER_STAGE = {"unet": "denoise", "vunet": "temporal_denoise", "sr0": "sr0", "sr1": "sr1",
+              "backbone": "parallel_decode", "prefill": "prefill"}
+
+
+def stage_pass_fns(model, cfg, tokens) -> list:
+    """``(stage, description, f(impl))`` of one pass of each iterative stage
+    at the path's shapes: phase 5's network calls, and Make-A-Video's
+    keyframe step (the spatial UNet over its 2 x 16 frames).  Parti's
+    decode step is phase 6b's."""
+    out = [(TIER_STAGE[name], what, fn) for name, what, fn, _ in tier_checks(model, cfg, tokens)
+           if name in TIER_STAGE]
+    if hasattr(model, "vunet"):
+        hw, F = cfg.image_size // cfg.latent_down, cfg.frames
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        z = torch.randn((2 * F, hw, hw, cfg.unet.in_channels), generator=g, device="cuda")
+        ctx = model.encode_text(torch.as_tensor(tokens[0], device="cuda")[None].repeat(2, 1))
+        ctx_f, t = ctx.repeat_interleave(F, dim=0), torch.full((2 * F,), 999.0, device="cuda")
+        out.insert(0, ("keyframe_denoise", f"spatial UNet step, input {tuple(z.shape)}",
+                       lambda impl: model.vunet.unet(z, t, ctx_f, impl=impl)))
+    return out
+
+
+def modeled(events, stage: str, hw) -> dict:
+    """The tracer's modeled category shares of a stage's events on ``hw``."""
+    from repro_torch.core import perf_model
+
+    return perf_model.breakdown_fraction([e for e in events if e.name.startswith(stage + "/")],
+                                         hw)
+
+
+def _shares_text(shares: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in shares.items() if v)
+
+
+def characterize_path(cfg, model, tokens, rows, passes, decode_prof) -> dict:
+    """The characterize phase of one path: (a) the port's full-width event
+    stream on ``meta`` (``trace_generative``, impl auto), its category
+    shares modeled on the card's peaks, its self-attention sequence lengths
+    and its regime; (b) one pass of each iterative stage under
+    ``torch.profiler`` (phase 6b's decode steps for the autoregressive
+    paths) with its measured shares beside the modeled ones; the hand
+    kernels the main path launched in a stage must show in its pass; (c)
+    for Stable Diffusion and Make-A-Video's keyframe step, the step on the
+    torch tier (cuDNN conv, materialized attention: the reference's naive
+    baseline) against the kernel tier, beside ``amdahl.flash_speedup`` of
+    the naive and auto streams."""
+    from repro_torch.core import amdahl, characterize, perf_model, prefill_decode, seq_profile
+    from repro_torch.core import profiler_analysis as pa
+    from repro_torch.workload import workload_for
+
+    hw = H100_SXM if next(model.parameters()).dtype == torch.bfloat16 else H100_SXM_FP32
+    wl = workload_for(cfg)
     t0 = time.perf_counter()
-    for i in range(steps):
-        step(i)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            step(i)
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    us = [getattr(e, "device_time_total", None) or e.cuda_time_total for e in on_card]
-    busy_ms = sum(us) / steps / 1e3
-    by_name = collections.Counter()
-    for e, t in zip(on_card, us):
-        by_name[e.name[:60]] += t / steps / 1e3
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-                launches_per_step=len(on_card) / steps,
-                top_ms={k: v for k, v in by_name.most_common(6)})
+    events = characterize.trace_generative(wl, impl="auto")
+    trace_s = time.perf_counter() - t0
+    sp = seq_profile.self_attention_profile(events)
+    out = dict(hardware=hw.name, trace_s=trace_s, events=len(events),
+               modeled_generate=perf_model.breakdown_fraction(events, hw),
+               seq_min=sp.min_seq, seq_max=sp.max_seq, seq_variation=sp.variation,
+               regime=prefill_decode.classify(events), stages={})
+    log(f"[characterize] {cfg.name} modeled ({hw.name}, {len(events)} events traced on meta in "
+        f"{trace_s:.2f} s): {_shares_text(out['modeled_generate'])}; self-attention sequence "
+        f"{sp.min_seq}-{sp.max_seq} ({sp.variation:.1f}x); {out['regime']['regime']} "
+        f"(prefill share {out['regime']['prefill_frac']:.3f})")
+    measured = [(st, what, lambda fn=fn: fn("kernel"))
+                for st, what, fn in stage_pass_fns(model, cfg, tokens)]
+    with torch.inference_mode():
+        profiles = {st: (what, profile_passes(fn)) for st, what, fn in measured}
+    if decode_prof is not None:
+        profiles["decode" if is_lm(cfg) else "ar_decode"] = ("decode step", decode_prof)
+    for st, (what, prof) in profiles.items():
+        names = set(prof["kernels"])
+        launched = {r["kernel"] for r in rows if r["launches_by_stage"].get(st)}
+        missing = [k for k in launched if not any(KERNEL_SYMBOL[k] in n for n in names)]
+        if missing:
+            raise AssertionError(f"{cfg.name} {st}: the profile shows no {missing} launch")
+        model_sh = modeled(events, st, hw)
+        out["stages"][st] = dict(prof, what=what, modeled=model_sh)
+        sh = prof["shares"]
+        log(f"[characterize] {cfg.name} {st} ({what}) measured: card busy "
+            f"{prof['busy_ms']:.2f} of {prof['window_ms']:.2f} ms (idle share "
+            f"{prof['idle_share']:.3f}), {prof['launches']:.0f} launches; shares "
+            f"{_shares_text({k: sh[k] for k in pa.CATEGORIES})} (other {sh['other']:.3f})"
+            + (f"; temporal share of attention {sh['temporal_of_attention']:.3f}"
+               if prof["category_ms"]["attention_temporal"] else "")
+            + f" | modeled {_shares_text(model_sh)} | top scopes (ms) "
+            + ", ".join(f"{k or '-'} {v:.2f}" for k, v in list(prof["scope_ms"].items())[:4]))
+    flash_stage = {"stable-diffusion": "denoise", "make-a-video": "keyframe_denoise"}.get(
+        cfg.name)
+    if flash_stage is not None:
+        fn = next(f for st, _, f in stage_pass_fns(model, cfg, tokens) if st == flash_stage)
+        times = {"kernel": [], "torch": []}
+        with torch.inference_mode():
+            fn("torch")  # warm-up
+            for _ in range(3):  # the tiers in turn; each tier's median
+                for impl, t in times.items():
+                    t.append(host_ms(lambda: fn(impl), rounds=1))
+        step = {impl: sorted(t)[1] for impl, t in times.items()}
+        attn = {k: sum(r[k] * r["launches_by_stage"].get(flash_stage, 0)
+                       for r in rows if r["kernel"] == "flash_attention") / passes[flash_stage]
+                for k in ("ms", "plain_ms")}
+        share, k = attn["plain_ms"] / step["torch"], attn["plain_ms"] / attn["ms"]
+        naive = characterize.trace_generative(wl, impl="naive")
+        rep = amdahl.flash_speedup(naive, events, hw)
+        out["flash"] = dict(stage=flash_stage, step_ms=step, speedup=step["torch"] / step["kernel"],
+                            attention_ms=attn, attention_share_torch=share,
+                            attention_speedup=k, amdahl_measured=1 / ((1 - share) + share / k),
+                            modeled_e2e=rep.e2e_speedup, modeled_amdahl=rep.amdahl_predicted,
+                            modeled_attention_share=rep.attn_share_base)
+        f = out["flash"]
+        log(f"[characterize] {cfg.name} flash speedup of a {flash_stage} step: kernel tier "
+            f"{step['kernel']:.2f} ms, torch tier (cuDNN conv, materialized attention) "
+            f"{step['torch']:.2f} ms: {f['speedup']:.3f}x; attention a step {attn['ms']:.2f} ms "
+            f"flash vs {attn['plain_ms']:.2f} materialized ({k:.2f}x, {share:.3f} of the torch "
+            f"step): Amdahl {f['amdahl_measured']:.3f}x | modeled naive vs auto ({hw.name}): "
+            f"{rep.e2e_speedup:.3f}x, Amdahl {rep.amdahl_predicted:.3f}x (attention share "
+            f"{rep.attn_share_base:.3f})")
+    return out
 
 
 def output_shape(cfg):
@@ -865,6 +1026,7 @@ SD_LAUNCHER_REQUESTS = 16
 # 64 new tokens; a backlog of 16 for the rate and the latency percentiles,
 # 4 of them (one batch) for the route, sampling and generate checks
 LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
+PARTI_DECODE_STEPS = 256  # of Parti's 1024 image tokens in its main path
 
 
 class StageLaunches:
@@ -1129,14 +1291,28 @@ def serve_llama(wl, model, rows) -> dict:
     return out
 
 
+def cut_decode(wl, steps: int):
+    """``wl`` with its ``ar_decode`` stage cut to ``steps`` tokens: its
+    ``generate`` decodes the first ``steps`` image tokens (``decode_ar``'s
+    ``steps`` argument; the rest stay 0) and then the whole VQ-GAN image."""
+    cd = wl.cost_descriptor()
+    cut = dataclasses.replace(cd, stages=tuple(
+        dataclasses.replace(st, steps=steps) if st.name == "ar_decode" else st
+        for st in cd.stages))
+    wl.cost_descriptor = lambda: cut
+    return wl
+
+
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
-             serve_fn=None) -> dict:
+             serve_fn=None, decode_steps: int | None = None) -> dict:
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
     from repro_torch.nn import init_params
     from repro_torch.workload import reduced_workload, workload_for
 
     wl = workload_for(cfg)
+    if decode_steps is not None:
+        cut_decode(wl, decode_steps)
     passes = stage_passes(wl, {})
 
     # -- 3. record ------------------------------------------------------------
@@ -1255,10 +1431,14 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
     if any(st in passes for st in ("decode", "ar_decode")):
         with phase(cfg.name, "decode profile"), torch.inference_mode():
             prof = decode_profile(model, cfg, tokens)
-            log(f"[decode] {cfg.name} one decode step: wall {prof['wall_ms']:.2f} ms, card busy "
-                f"{prof['device_busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
-                f"{prof['launches_per_step']:.0f} launches; most device time (ms): "
+            log(f"[decode] {cfg.name} one decode step: wall {prof['window_ms']:.2f} ms, card busy "
+                f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+                f"{prof['launches']:.0f} launches; most device time (ms): "
                 + "; ".join(f"{k} {v:.2f}" for k, v in prof["top_ms"].items()))
+
+    # -- 6c. characterize: the modeled breakdown beside the measured one ---------
+    with phase(cfg.name, "characterize"):
+        chz = characterize_path(cfg, model, tokens, rows, passes, prof)
 
     # -- 7. small input: the card's kernel path against the CPU plain path --------
     with phase(cfg.name, "small"):
@@ -1298,7 +1478,8 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
         params_m=n_params / 1e6, dtype=dtype, init_s=init_s,
         passes=passes, generate_s=wall, stage_s=stage_s, step_ms=step_ms, tier_ms=tier_ms,
         peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err,
-        tier_vs_fp32_rel_l2=tier_f32_err, decode_profile=prof, small_err=small_err,
+        tier_vs_fp32_rel_l2=tier_f32_err, decode_profile=prof, characterize=chz,
+        small_err=small_err,
         launches=launches, kernels=per_kernel, **split))
 
 
@@ -1319,7 +1500,6 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     if cap != (9, 0):
         raise RuntimeError(f"needs an sm_90 (Hopper) card, got capability {cap}")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.suite import (
         IMAGEN,
         LLAMA2_7B,
@@ -1371,15 +1551,18 @@ def main() -> int:
                                kernels=("flash_attention", "temporal_flash_attention")),
         LLAMA2_7B.name: run_path(LLAMA2_7B, tag="main-lm", record_steps=1, smi=smi,
                                  kernels=("flash_attention",), serve_fn=serve_llama),
-        # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB
+        # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB; the
+        # first PARTI_DECODE_STEPS of its 1024 tokens (ms a token is the reading)
         PARTI.name: run_path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
-                             record_steps=1, smi=smi, kernels=("conv2d", "flash_attention")),
+                             record_steps=1, smi=smi, kernels=("conv2d", "flash_attention"),
+                             decode_steps=PARTI_DECODE_STEPS),
     }
     kernels = summarize(paths)
     paths_s = time.perf_counter() - t_all
     log(f"[total] {len(paths)} paths in {paths_s:.1f} s")
     summary = dict(device=smi, kind=kind, paths_s=paths_s, sass_mma=mma,
-                   paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels)
+                   paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels,
+                   characterize={k: v["summary"]["characterize"] for k, v in paths.items()})
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -133,6 +133,13 @@ def function(name: str, argtypes: list):
     return fn
 
 
+def takes_plain(t: torch.Tensor) -> bool:
+    """True where a wrapper runs its kernel's plain version: a CPU tensor (the
+    CPU tests' numerics) or a ``meta`` tensor (shapes only, as the tracer's
+    characterization runs: nothing is computed and nothing launched)."""
+    return t.device.type in ("cpu", "meta")
+
+
 def check_device(*tensors: torch.Tensor | None) -> torch.device:
     """All given tensors on one CUDA device of compute capability 9.0."""
     present = [t for t in tensors if t is not None]

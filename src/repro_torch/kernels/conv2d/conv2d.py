@@ -5,7 +5,8 @@
 same implicit-GEMM kernel with a (K x 1) filter over the (frames, positions)
 image.  A CUDA tensor launches the hand-written kernel; a CPU tensor takes
 the plain version (``ref.conv2d_ref`` / ``ref.temporal_conv1d_ref``), which
-is how the CPU tests reach these functions.  ``plan`` picks the kernel's
+is how the CPU tests reach these functions; a ``meta`` tensor takes it shape
+only (``build.takes_plain``).  ``plan`` picks the kernel's
 block tile and its split-K slices for each call of either.
 """
 
@@ -103,7 +104,7 @@ def conv2d(
     emit_stats: bool = False,
 ):
     """Fused NHWC conv: ``y`` or ``(y, stats)``; see ``ref.conv2d_ref``."""
-    if x.device.type == "cpu":
+    if build.takes_plain(x):
         return ref.conv2d_ref(
             x, w, stride=stride, gn_a=gn_a, gn_b=gn_b, gn_silu=gn_silu, bias=bias,
             temb=temb, silu=silu, residual=residual, emit_stats=emit_stats)
@@ -164,7 +165,7 @@ def temporal_conv1d(
 ) -> torch.Tensor:
     """``y[b, f, n] = bias + sum_k x[b, f + k - K//2, n] @ w[k]``, frames
     outside [0, F) zero; see ``ref.temporal_conv1d_ref``."""
-    if x.device.type == "cpu":
+    if build.takes_plain(x):
         B, F, N, C = x.shape
         y = ref.temporal_conv1d_ref(x.reshape(B, F, N, 1, C), w, bias)
         return y.reshape(B, F, N, w.shape[-1])

@@ -10,7 +10,8 @@ no counterpart here.  ``temporal_flash_attention`` is the port of
 ``(B, F, HW, H, D)`` operands, read and written in that layout, launched
 as ``temporal_plan`` gives.  A CUDA tensor launches the hand-written
 kernel; a CPU tensor takes the plain version (``ref.attention_ref`` /
-``ref.temporal_attention_ref``).
+``ref.temporal_attention_ref``), and a ``meta`` tensor takes it shape only
+(``build.takes_plain``).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def flash_attention(
     window: int | None = None,
     kv_offset: int = 0,
 ) -> torch.Tensor:
-    if q.device.type == "cpu":
+    if build.takes_plain(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                                  kv_offset=kv_offset)
     dev = build.check_device(q, k, v)
@@ -129,7 +130,7 @@ def temporal_flash_attention(
     fv = F if frames_valid is None else int(frames_valid)
     if not 1 <= fv <= F:
         raise ValueError(f"frames_valid must be in [1, {F}], got {frames_valid}")
-    if q.device.type == "cpu":
+    if build.takes_plain(q):
         return ref.temporal_attention_ref(q, k, v, scale=scale, frames_valid=fv)
     dev = build.check_device(q, k, v)
     if q.dtype not in build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:

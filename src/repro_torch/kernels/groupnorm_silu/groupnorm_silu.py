@@ -5,7 +5,8 @@ Ragged N needs no padding here: the blocks of a cluster split the rows
 themselves.  ``plan`` gives each call's launch: the channel chunks, the
 cluster of blocks over N, and whether a block keeps its rows in shared
 memory or reads them twice.  A CUDA tensor launches the hand-written
-kernel; a CPU tensor takes the plain version (``ref.groupnorm_silu_ref``).
+kernel; a CPU tensor takes the plain version (``ref.groupnorm_silu_ref``),
+and a ``meta`` tensor takes it shape only (``build.takes_plain``).
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def groupnorm_silu(
     eps: float = 1e-5,
     silu: bool = True,
 ) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if build.takes_plain(x):
         return ref.groupnorm_silu_ref(x, scale, bias, groups=groups, eps=eps, silu=silu)
     dev = build.check_device(x, scale, bias)
     if x.dtype not in build.DTYPE_CODES:

@@ -23,6 +23,27 @@ _MODEL_IMPL = {
 }
 
 
+# The reference's name of the path an ``impl`` string selects, as its tracer
+# events carry it: ``auto`` resolves to ``pallas`` on the reference's
+# deployment chip, the port's ``kernel`` tier is that fused path, and its
+# ``torch`` tier the unfused ``naive`` baseline; the reference's own strings
+# pass unchanged.  Events are computed from this name, never from the tier
+# the port runs (``naive`` and ``blocked_jax`` both run ``torch`` here).
+_EVENT_IMPL = {"auto": "pallas", "kernel": "pallas", "torch": "naive"}
+
+
+def event_impl(impl: str | None) -> str:
+    """The attention event's ``impl`` for the caller's string."""
+    return _EVENT_IMPL.get(impl or "auto", impl)
+
+
+def conv_event_impl(impl: str | None) -> str:
+    """The conv event's ``impl``: the reference's conv tier of the string
+    (``blocked_jax`` runs the library conv, ``xla``)."""
+    name = event_impl(impl)
+    return "xla" if name == "blocked_jax" else name
+
+
 TIERS = ("kernel", "torch")  # what ``resolve_model_impl`` gives
 
 

@@ -13,6 +13,11 @@ them:
 The MaskGIT rule, which the reference writes out twice (``ar_image.py``
 ``decode_parallel`` and ``ttv.py`` ``decode_tokens``), is written once here
 (:func:`maskgit_step`, :func:`parallel_decode`); Phenaki calls it too.
+
+Under an active trace both loops stand one pass for the loop, as the
+reference's: the parallel decode runs one backbone pass, scales its events
+by the step count and returns its argmax; the autoregressive decode runs its
+first step.  Neither reads a tensor's values, so both run on ``meta``.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.core import tracer
 from repro_torch.models.layers.attention import AttentionCache
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.norms import LayerNorm
@@ -99,9 +105,15 @@ def parallel_decode(backbone: Callable, ctx: torch.Tensor, seq_len: int, steps: 
                     mask_token: int) -> torch.Tensor:
     """All-masked tokens (B, seq_len) -> decoded tokens: ``steps`` MaskGIT
     steps, then one more backbone pass fills any position still masked
-    with its argmax (``steps + 1`` passes in all)."""
+    with its argmax (``steps + 1`` passes in all).  Under an active trace:
+    one pass, its events scaled by ``steps``, and its argmax."""
     tokens = torch.full((ctx.shape[0], seq_len), mask_token, dtype=torch.int64,
                         device=ctx.device)
+    if tracer.active():
+        t0 = len(tracer.innermost().events)
+        logits = backbone(tokens, ctx)
+        tracer.scale_since(t0, steps)
+        return logits.argmax(-1)
     for i in range(steps):
         tokens = maskgit_step(tokens, backbone(tokens, ctx), i, steps, mask_token)
     pred = backbone(tokens, ctx).argmax(-1)
@@ -124,11 +136,12 @@ class ARImageModel(Module):
         self.cfg = cfg
         c = cfg
         self.text = TextEncoder(c.text)
-        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype)
-        self.embed = Embedding(c.image_vocab + 1, c.d_model, c.dtype)  # +1: the mask token
+        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype, name="ctx_proj")
+        # +1: the mask token
+        self.embed = Embedding(c.image_vocab + 1, c.d_model, c.dtype, name="img_embed")
         self.param("pos", (c.image_tokens, c.d_model), normal_init(0.01), c.dtype)
-        self.final_ln = LayerNorm(c.d_model, dtype=c.dtype)
-        self.head = Dense(c.d_model, c.image_vocab, False, c.dtype)
+        self.final_ln = LayerNorm(c.d_model, dtype=c.dtype, name="final_ln")
+        self.head = Dense(c.d_model, c.image_vocab, False, c.dtype, name="head")
         self.vq = VQGANDecoder(c.vq)
         lm = c.lm_config()
         for i in range(c.n_layers):
@@ -152,8 +165,9 @@ class ARImageModel(Module):
         RoPE is a no-op here, as in the reference."""
         x = self.embed(tokens)
         x = x + self.pos[: tokens.shape[1]].to(x.dtype)[None]
-        for block in self.blocks():
-            x = block(x, context=ctx, impl=impl)
+        for i, block in enumerate(self.blocks()):
+            with tracer.scope(f"layer{i}"):
+                x = block(x, context=ctx, impl=impl)
         return self.head(self.final_ln(x))
 
     def decode_parallel(self, ctx, steps: int, *, impl="auto"):
@@ -190,10 +204,14 @@ class ARImageModel(Module):
         ``image_tokens``; the workload passes its stage's steps) from a
         projected text context.  Positions not decoded stay 0, as the
         reference's token buffer starts.  Decode attention is plain PyTorch
-        on every tier, so no kernel tier applies."""
+        on every tier, so no kernel tier applies.  Under an active trace the
+        first step runs, as the reference's (the workload's ``trace_events``
+        samples the steps)."""
         B, S = ctx.shape[0], self.cfg.image_tokens
         tokens = torch.zeros((B, S), dtype=torch.int64, device=ctx.device)
         caches, cross = self.ar_init(ctx)
+        if tracer.active():
+            steps = 1
         for t in range(S if steps is None else steps):
             prev = tokens[:, max(t - 1, 0): max(t - 1, 0) + 1]  # column 0 is still BOS 0 at t = 0
             tokens[:, t] = self.ar_step(prev, t, caches, cross).argmax(-1)  # the first maximum

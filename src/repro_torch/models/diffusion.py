@@ -7,7 +7,9 @@ the DDIM schedule and the two pipeline variants,
     cascade of super-resolution UNets, each denoising at its output size
     with the upsampled image of the stage before as a channel condition.
 
-The loop is a Python loop over DDIM steps."""
+The loop is a Python loop over DDIM steps.  Under an active trace it runs
+one step and scales that step's events by the step count (every step runs
+the same graph), as the reference's ``ddim_range`` does."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from repro_torch.models.unet import UNet2D, UNetConfig
 from repro_torch.models.vae import ConvDecoder, DecoderConfig
@@ -39,17 +42,28 @@ def ddim_timesteps(total_steps: int) -> list[int]:
 
 
 def ddim_step(x, eps, a_t, a_prev):
-    """Deterministic DDIM update (eta=0)."""
+    """Deterministic DDIM update (eta=0), in the dtype ``jnp`` promotes the
+    latent and the fp32 schedule to: a bf16 latent leaves the step in fp32,
+    as the reference's (and its tracer events after the loop count fp32)."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, eps.dtype), a_t.dtype)
+    x, eps = x.to(dt), eps.to(dt)
     x0 = (x - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
     return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
 
 
 def ddim_range(eps_fn, z, total_steps: int, start: int, stop: int):
     """Run DDIM step indices ``[start, stop)`` of a ``total_steps`` schedule;
-    ``eps_fn(z, t)`` predicts noise at integer train timestep ``t``."""
+    ``eps_fn(z, t)`` predicts noise at integer train timestep ``t``.  Under
+    an active trace: step ``start`` once, its events scaled by
+    ``stop - start``."""
     alphas = ddpm_alphas(device=z.device)
     ts = ddim_timesteps(total_steps)
     one = torch.ones((), dtype=torch.float32, device=z.device)
+    if tracer.active():
+        t0 = len(tracer.innermost().events)
+        eps = eps_fn(z, ts[start])
+        tracer.scale_since(t0, stop - start)
+        return ddim_step(z, eps, alphas[ts[start]], one)
     for i in range(start, stop):
         a_prev = alphas[ts[i + 1]] if i + 1 < total_steps else one
         z = ddim_step(z, eps_fn(z, ts[i]), alphas[ts[i]], a_prev)

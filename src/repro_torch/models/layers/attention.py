@@ -16,6 +16,11 @@ reference's ``dynamic_update_slice`` returns a new cache; copying Parti's
 Local windows (with the ring-buffer cache), qk-norm and M-RoPE come with the
 LM families that use them (``configs.base.check_dense`` refuses those
 configs).
+
+Each attention call records the reference's event (``_attention_event``),
+computed from the caller's ``impl`` string (``tiers.event_impl``): the
+``naive`` path counts the materialized (Sq, Skv) traffic, every other the
+flash traffic, whatever tier the port runs.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.tiers import event_impl
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.basic import Dense
 from repro_torch.nn import Module
@@ -36,20 +43,42 @@ class AttentionCache(NamedTuple):
     # the current length is the caller's (one for the whole batch)
 
 
+def _attention_event(name, impl, B, Sq, Skv, H, D, dtype, causal):
+    """The reference's attention event (no local window: the port has none)."""
+    if not tracer.active():
+        return
+    elem = tracer.dtype_bytes(dtype)
+    qkv_bytes = (B * Sq * H * D + 2 * B * Skv * H * D) * elem
+    out_bytes = B * Sq * H * D * elem
+    frac = 0.5 if causal else 1.0
+    flops = 4.0 * B * H * Sq * Skv * D * frac
+    if impl == "naive":
+        # the (Sq, Skv) similarity matrix makes two fp32 HBM round trips
+        # (scores, probabilities): the traffic flash attention removes
+        inter = 4.0 * B * H * Sq * Skv * 4 * frac
+        traffic = qkv_bytes + out_bytes + inter
+    else:
+        # flash: K/V are re-streamed once per query block of 512
+        kv_repasses = max(1, Sq // 512) * frac
+        traffic = qkv_bytes + out_bytes + (2 * B * Skv * H * D * elem) * (kv_repasses - 1)
+    tracer.record("attention", name, flops=flops, bytes_hbm=traffic, seq_len=int(Skv),
+                  impl=impl, temporal=False, q_len=int(Sq))
+
+
 class Attention(Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *, n_kv_heads: int | None = None,
                  qkv_bias: bool = False, out_bias: bool = False, rope: bool = False,
                  rope_base: float = 10000.0, rope_pct: float = 1.0, causal: bool = False,
-                 cross: bool = False, dtype=torch.float32):
+                 cross: bool = False, dtype=torch.float32, name: str = "attn"):
         super().__init__()
-        self.n_heads, self.head_dim, self.cross = n_heads, head_dim, cross
+        self.n_heads, self.head_dim, self.cross, self.name = n_heads, head_dim, cross, name
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         self.rope, self.rope_base, self.rope_pct = rope, rope_base, rope_pct
         self.causal, self.dtype = causal, dtype
-        self.wq = Dense(d_model, n_heads * head_dim, qkv_bias, dtype)
-        self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype)
-        self.wv = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype)
-        self.wo = Dense(n_heads * head_dim, d_model, out_bias, dtype)
+        self.wq = Dense(d_model, n_heads * head_dim, qkv_bias, dtype, name="wq")
+        self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wk")
+        self.wv = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wv")
+        self.wo = Dense(n_heads * head_dim, d_model, out_bias, dtype, name="wo")
 
     def _heads(self, t: torch.Tensor, n: int) -> torch.Tensor:
         return t.reshape(t.shape[0], t.shape[1], n, self.head_dim)
@@ -75,7 +104,10 @@ class Attention(Module):
         k, v = self.project_kv(context if self.cross else x)
         if not self.cross:
             q, k = self._rope(q, positions), self._rope(k, positions)
-        out = attn_ops.attention(q, k, v, causal=self.causal and not self.cross, impl=impl)
+        causal = self.causal and not self.cross
+        out = attn_ops.attention(q, k, v, causal=causal, impl=impl)
+        _attention_event(self.name, event_impl(impl), B, S, k.shape[1], self.n_heads,
+                         self.head_dim, x.dtype, causal)
         y = self.wo(out.reshape(B, S, self.n_heads * self.head_dim))
         return (y, AttentionCache(k, v)) if return_kv else y
 
@@ -101,6 +133,8 @@ class Attention(Module):
                 raise ValueError("cross-attention decode needs a cross_cache")
             out = attn_ops.decode_attention(q, cross_cache.k, cross_cache.v,
                                             kv_len=cross_cache.k.shape[1])
+            _attention_event(self.name, "decode", B, 1, cross_cache.k.shape[1], self.n_heads,
+                             self.head_dim, x.dtype, False)
             return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache
         k_new, v_new = self.project_kv(x)
         pos = torch.full((B, 1), cur_len, dtype=torch.int32, device=x.device)
@@ -108,4 +142,6 @@ class Attention(Module):
         cache.k[:, cur_len] = k_new[:, 0].to(cache.k.dtype)
         cache.v[:, cur_len] = v_new[:, 0].to(cache.v.dtype)
         out = attn_ops.decode_attention(q, cache.k, cache.v, kv_len=cur_len + 1)
+        _attention_event(self.name, "decode", B, 1, cache.k.shape[1], self.n_heads,
+                         self.head_dim, x.dtype, True)
         return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache

@@ -1,4 +1,5 @@
-"""Dense / Embedding primitives (``repro.models.layers.basic``)."""
+"""Dense / Embedding primitives (``repro.models.layers.basic``), each
+recording its tracer event under the reference's ``name``."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ import math
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.nn import Module, normal_init, scaled_init, zeros_init
 
 
@@ -13,9 +15,9 @@ class Dense(Module):
     """y = x @ W (+ b), W stored ``(in, out)`` as in the reference."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, name: str = "dense"):
         super().__init__()
-        self.use_bias = use_bias
+        self.in_dim, self.out_dim, self.use_bias, self.name = in_dim, out_dim, use_bias, name
         self.param("kernel", (in_dim, out_dim), scaled_init((0,)), dtype)
         if use_bias:
             self.param("bias", (out_dim,), zeros_init, dtype)
@@ -24,16 +26,28 @@ class Dense(Module):
         y = torch.matmul(x, self.kernel.to(x.dtype))
         if self.use_bias:
             y = y + self.bias.to(x.dtype)
+        if tracer.active():
+            tracer.record(
+                "linear", self.name,
+                flops=2.0 * tracer.numel(x.shape[:-1]) * self.in_dim * self.out_dim,
+                bytes_hbm=tracer.nbytes((x.shape, x.dtype), (y.shape, y.dtype),
+                                        ((self.in_dim, self.out_dim), x.dtype)))
         return y
 
 
 class Embedding(Module):
-    def __init__(self, vocab: int, dim: int, dtype=torch.float32):
+    def __init__(self, vocab: int, dim: int, dtype=torch.float32, name: str = "embed"):
         super().__init__()
+        self.name = name
         self.param("table", (vocab, dim), normal_init(0.02), dtype)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.table[ids]
+        out = self.table[ids]
+        if tracer.active():
+            tracer.record("embed", self.name, flops=0.0,
+                          bytes_hbm=tracer.nbytes((out.shape, out.dtype))
+                          + tracer.numel(ids.shape) * 4)
+        return out
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:

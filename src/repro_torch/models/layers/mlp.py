@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tracer
 from repro_torch.models.layers.basic import Dense
 from repro_torch.nn import Module
 
@@ -20,15 +21,18 @@ _ACTS = {
 
 class MLP(Module):
     def __init__(self, d_model: int, d_ff: int, use_bias: bool = False, dtype=torch.float32, *,
-                 activation: str = "gelu", gated: bool = False):
+                 activation: str = "gelu", gated: bool = False, name: str = "mlp"):
         super().__init__()
-        self.act, self.gated = _ACTS[activation], gated
-        self.wi = Dense(d_model, d_ff, use_bias, dtype)
-        self.wo = Dense(d_ff, d_model, use_bias, dtype)
+        self.act, self.gated, self.name = _ACTS[activation], gated, name
+        self.wi = Dense(d_model, d_ff, use_bias, dtype, name="wi")
+        self.wo = Dense(d_ff, d_model, use_bias, dtype, name="wo")
         if gated:
-            self.wg = Dense(d_model, d_ff, use_bias, dtype)
+            self.wg = Dense(d_model, d_ff, use_bias, dtype, name="wg")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.wi(x)
         h = self.act(self.wg(x)) * h if self.gated else self.act(h)
+        if tracer.active():
+            tracer.record("pointwise", f"{self.name}_act", flops=4.0 * h.numel(),
+                          bytes_hbm=tracer.nbytes((h.shape, h.dtype)) * 2)
         return self.wo(h)

@@ -1,5 +1,6 @@
 """Text encoder (CLIP-style bidirectional transformer), the port of
-``repro.models.text_encoder``: the first stage of every TTI pipeline."""
+``repro.models.text_encoder``: the first stage of every TTI pipeline.  Layer
+``i`` runs under ``tracer.scope("text_enc_layer<i>")``, as the reference's."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.models.layers.attention import Attention
 from repro_torch.models.layers.basic import Embedding
 from repro_torch.models.layers.mlp import MLP
@@ -29,10 +31,10 @@ class TextEncoderConfig:
 class _EncoderLayer(Module):
     def __init__(self, c: TextEncoderConfig):
         super().__init__()
-        self.ln1 = LayerNorm(c.d_model, dtype=c.dtype)
+        self.ln1 = LayerNorm(c.d_model, dtype=c.dtype, name="ln1")
         self.attn = Attention(c.d_model, c.n_heads, c.d_model // c.n_heads,
                               qkv_bias=True, out_bias=True, dtype=c.dtype)
-        self.ln2 = LayerNorm(c.d_model, dtype=c.dtype)
+        self.ln2 = LayerNorm(c.d_model, dtype=c.dtype, name="ln2")
         self.mlp = MLP(c.d_model, c.d_ff, use_bias=True, dtype=c.dtype)
 
     def forward(self, x, *, impl="auto"):
@@ -46,7 +48,7 @@ class TextEncoder(Module):
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype)
         self.param("pos", (cfg.max_len, cfg.d_model), normal_init(0.01), cfg.dtype)
-        self.final_ln = LayerNorm(cfg.d_model, dtype=cfg.dtype)
+        self.final_ln = LayerNorm(cfg.d_model, dtype=cfg.dtype, name="final_ln")
         for i in range(cfg.n_layers):
             self.add_module(f"layer{i}", _EncoderLayer(cfg))
 
@@ -55,5 +57,6 @@ class TextEncoder(Module):
         x = self.embed(tokens)
         x = x + self.pos[:S].to(x.dtype)[None]
         for i in range(self.cfg.n_layers):
-            x = getattr(self, f"layer{i}")(x, impl=impl)
+            with tracer.scope(f"text_enc_layer{i}"):
+                x = getattr(self, f"layer{i}")(x, impl=impl)
         return self.final_ln(x)

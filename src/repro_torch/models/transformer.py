@@ -16,6 +16,9 @@ leading layer axis (``nn.stack_params``), so a JAX tree bridges unchanged;
 the Python loop over layers reads each layer's slice as a view
 (``nn.layer_views``).  MoE, SSM, RG-LRU, local-window, enc-dec and VLM
 blocks come with their own slices (``configs.base.check_dense``).
+
+Tracer scopes are the reference's unrolled ones: ``layer_g{i}_{j}_{type}``
+around each layer of the LM's prefill and decode step.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import LMConfig, check_dense
+from repro_torch.core import tracer
 from repro_torch.models.layers.attention import Attention, AttentionCache
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.mlp import MLP
@@ -30,9 +34,9 @@ from repro_torch.models.layers.norms import LayerNorm, RMSNorm
 from repro_torch.nn import Module, layer_views, stack_params
 
 
-def _norm(c: LMConfig) -> Module:
-    return (RMSNorm(c.d_model, dtype=c.dtype) if c.norm == "rmsnorm"
-            else LayerNorm(c.d_model, dtype=c.dtype))
+def _norm(c: LMConfig, name: str) -> Module:
+    return (RMSNorm(c.d_model, dtype=c.dtype, name=name) if c.norm == "rmsnorm"
+            else LayerNorm(c.d_model, dtype=c.dtype, name=name))
 
 
 class Block(Module):
@@ -50,19 +54,19 @@ class Block(Module):
             raise NotImplementedError(f"{block_type!r} blocks come with their LM family")
         c = cfg
         self.with_cross = with_cross
-        self.norm1 = _norm(c)
+        self.norm1 = _norm(c, "norm1")
         self.attn = Attention(
             c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
             qkv_bias=c.qkv_bias, rope=not c.is_encdec, rope_base=c.rope_base,
             rope_pct=c.rope_pct, causal=causal, dtype=c.dtype)
-        self.norm2 = _norm(c)
+        self.norm2 = _norm(c, "norm2")
         self.mlp = MLP(c.d_model, c.d_ff, dtype=c.dtype, activation=c.mlp_activation,
                        gated=c.mlp_gated)
         if with_cross:
             self.cross_attn = Attention(
                 c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
-                qkv_bias=c.qkv_bias, cross=True, dtype=c.dtype)
-            self.norm_cross = _norm(c)
+                qkv_bias=c.qkv_bias, cross=True, dtype=c.dtype, name="cross_attn")
+            self.norm_cross = _norm(c, "norm_cross")
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor | None = None,
                 context: torch.Tensor | None = None, impl: str = "auto",
@@ -122,8 +126,8 @@ class TransformerLM(Module):
             else:
                 self.groups.append((t, 1))
         self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype)
-        self.final_norm = _norm(cfg)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype)
+        self.final_norm = _norm(cfg, "final_norm")
+        self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype, name="lm_head")
         self.blocks = Module()
         for i, (t, n) in enumerate(self.groups):
             self.blocks.add_module(f"g{i}_{t}", stack_params(Block(cfg, t, causal=True), n))
@@ -142,9 +146,10 @@ class TransformerLM(Module):
         """Full causal forward: tokens (B, S) -> logits (B, S, vocab)."""
         x = self.embed(tokens)
         positions = _positions(tokens)
-        for group in self.layers():
-            for layer in group:
-                x = layer(x, positions=positions, impl=impl)
+        for i, group in enumerate(self.layers()):
+            for j, layer in enumerate(group):
+                with tracer.scope(self._scope(i, j)):
+                    x = layer(x, positions=positions, impl=impl)
         return self.lm_head(self.final_norm(x))
 
     def prefill(self, tokens: torch.Tensor, *, impl: str = "auto",
@@ -158,15 +163,23 @@ class TransformerLM(Module):
         x = self.embed(tokens)
         positions = _positions(tokens)
         caches = []
-        for group in self.layers():
+        for i, group in enumerate(self.layers()):
             kv = _zero_cache(group, B, cap)
             for j, layer in enumerate(group):
-                x, st = layer(x, positions=positions, impl=impl, return_state=True)
+                with tracer.scope(self._scope(i, j)):
+                    x, st = layer(x, positions=positions, impl=impl, return_state=True)
                 kv.k[j, :, :min(S, cap)] = st["attn"].k[:, :cap]
                 kv.v[j, :, :min(S, cap)] = st["attn"].v[:, :cap]
             caches.append({"attn": kv})
-        logits = self.lm_head(self.final_norm(x[:, -1:]))
+        # the norm over every position, as the reference's (its event counts
+        # them all); the last position's logits
+        logits = self.lm_head(self.final_norm(x)[:, -1:])
         return logits, caches
+
+    def init_cache(self, batch: int, max_len: int) -> list:
+        """Zero caches of ``max_len`` rows, one ``{"attn": (k, v)}`` a group
+        of shape (n, batch, max_len, KVH, D), beside the weights."""
+        return [{"attn": _zero_cache(group, batch, max_len)} for group in self.layers()]
 
     def decode_step(self, token: torch.Tensor, caches: list, cur_len: int, *,
                     impl: str = "auto"):
@@ -174,8 +187,12 @@ class TransformerLM(Module):
         caches), the caches written in place."""
         del impl  # decode attention is plain PyTorch on every tier
         x = self.embed(token)
-        for group, cache in zip(self.layers(), caches):
+        for i, (group, cache) in enumerate(zip(self.layers(), caches)):
             for j, layer in enumerate(group):
-                x, _ = layer.decode(x, {"attn": AttentionCache(cache["attn"].k[j],
-                                                               cache["attn"].v[j])}, cur_len)
+                with tracer.scope(self._scope(i, j)):
+                    x, _ = layer.decode(x, {"attn": AttentionCache(cache["attn"].k[j],
+                                                                   cache["attn"].v[j])}, cur_len)
         return self.lm_head(self.final_norm(x)), caches
+
+    def _scope(self, i: int, j: int) -> str:
+        return f"layer_g{i}_{j}_{self.groups[i][0]}"

@@ -8,7 +8,9 @@
   factorized spatial / temporal attention, sampled by parallel decoding
   (the MaskGIT rule of ``models/ar_image.py``).
 
-Inference only; the training losses come with a later slice.
+Inference only; the training losses come with a later slice.  Tracer
+events, names and scopes are the reference's: ``temporal/<block>`` around a
+VideoUNet site's temporal layers, ``layer<i>`` around a Phenaki layer.
 """
 
 from __future__ import annotations
@@ -19,32 +21,37 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.tiers import event_impl
 from repro_torch.models.ar_image import parallel_decode
 from repro_torch.models.layers.attention import Attention
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.conv import TemporalConv1D
 from repro_torch.models.layers.norms import LayerNorm
 from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
-from repro_torch.models.unet import UNet2D, UNetConfig, unet_plan
+from repro_torch.models.unet import UNet2D, UNetConfig, _record_pointwise, unet_plan
 from repro_torch.nn import Module, normal_init
 
 
 class TemporalAttention(Module):
     """Attention across the frame axis of (B, F, H, W, C) tensors, with a
     residual: ``x + out(attn(ln(x)))``.  The ``kernel`` tier reads the
-    (B, F, HW, heads, head_dim) projections in place; ``torch`` permutes."""
+    (B, F, HW, heads, head_dim) projections in place; ``torch`` permutes,
+    which the event counts (8 more passes over q/k/v/out, strided: half the
+    bandwidth)."""
 
-    def __init__(self, channels: int, head_channels: int = 64, dtype=torch.float32):
+    def __init__(self, channels: int, head_channels: int = 64, dtype=torch.float32,
+                 name: str = "temporal_attn"):
         super().__init__()
         self.n_heads = max(1, channels // head_channels)
-        self.head_channels = head_channels
+        self.head_channels, self.name = head_channels, name
         inner = self.n_heads * head_channels
-        self.ln = LayerNorm(channels, dtype=dtype)
-        self.wq = Dense(channels, inner, True, dtype)
-        self.wk = Dense(channels, inner, True, dtype)
-        self.wv = Dense(channels, inner, True, dtype)
-        self.out = Dense(inner, channels, True, dtype)
+        self.ln = LayerNorm(channels, dtype=dtype, name="ln")
+        self.wq = Dense(channels, inner, True, dtype, name="wq")
+        self.wk = Dense(channels, inner, True, dtype, name="wk")
+        self.wv = Dense(channels, inner, True, dtype, name="wv")
+        self.out = Dense(inner, channels, True, dtype, name="out")
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         B, F, H, W, C = x.shape
@@ -56,6 +63,15 @@ class TemporalAttention(Module):
 
         out = attn_ops.temporal_attention(heads(self.wq), heads(self.wk), heads(self.wv),
                                           impl=impl)
+        if tracer.active():
+            elem = tracer.dtype_bytes(x.dtype)
+            qkv_o = 4 * B * F * H * W * nh * hd * elem
+            name = event_impl(impl)
+            fused = name in ("pallas", "interpret")
+            tracer.record("attention", self.name, flops=4.0 * B * H * W * nh * F * F * hd,
+                          bytes_hbm=qkv_o + (0 if fused else 2 * qkv_o), seq_len=F,
+                          temporal=True, q_len=F, impl=name,
+                          bw_efficiency=1.0 if fused else 0.5)
         y = self.out(out.reshape(B, F, H * W, nh * hd)).reshape(B, F, H, W, C)
         return x + y
 
@@ -112,8 +128,10 @@ class VideoUNet(Module):
         def temporal_hook(name, h, frames):
             bh, hh, wh, ch = h.shape
             hv = h.reshape(bh // frames, frames, hh, wh, ch)
-            hv = getattr(self, f"tattn/{name}")(hv, impl=impl)
-            hv = hv + getattr(self, f"tconv/{name}")(hv, impl=impl)
+            with tracer.scope(f"temporal/{name}"):
+                hv = getattr(self, f"tattn/{name}")(hv, impl=impl)
+                hv = hv + getattr(self, f"tconv/{name}")(hv, impl=impl)
+                _record_pointwise("tconv_residual_add", hv, reads=2)
             return hv.reshape(bh, hh, wh, ch)
 
         # jnp.repeat(t, F): each element F times in place
@@ -167,14 +185,14 @@ class _PhenakiLayer(Module):
         super().__init__()
         self.frames = c.frames
         hd = c.d_model // c.n_heads
-        self.ln_s = LayerNorm(c.d_model, dtype=c.dtype)
-        self.spatial = Attention(c.d_model, c.n_heads, hd, dtype=c.dtype)
+        self.ln_s = LayerNorm(c.d_model, dtype=c.dtype, name="ln_s")
+        self.spatial = Attention(c.d_model, c.n_heads, hd, dtype=c.dtype, name="spatial")
         self.temporal = TemporalAttention(c.d_model, hd, c.dtype)
-        self.ln_c = LayerNorm(c.d_model, dtype=c.dtype)
-        self.cross = Attention(c.d_model, c.n_heads, hd, cross=True, dtype=c.dtype)
-        self.ln_f = LayerNorm(c.d_model, dtype=c.dtype)
-        self.ff_in = Dense(c.d_model, c.d_ff, True, c.dtype)
-        self.ff_out = Dense(c.d_ff, c.d_model, True, c.dtype)
+        self.ln_c = LayerNorm(c.d_model, dtype=c.dtype, name="ln_c")
+        self.cross = Attention(c.d_model, c.n_heads, hd, cross=True, dtype=c.dtype, name="cross")
+        self.ln_f = LayerNorm(c.d_model, dtype=c.dtype, name="ln_f")
+        self.ff_in = Dense(c.d_model, c.d_ff, True, c.dtype, name="ff_in")
+        self.ff_out = Dense(c.d_ff, c.d_model, True, c.dtype, name="ff_out")
 
     def forward(self, x, ctx, *, impl="auto"):
         B, S, d = x.shape
@@ -203,12 +221,13 @@ class PhenakiModel(Module):
         self.cfg = cfg
         c = cfg
         self.text = TextEncoder(c.text)
-        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype)
-        self.embed = Embedding(c.video_vocab + 1, c.d_model, c.dtype)  # +1: the mask token
+        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype, name="ctx_proj")
+        # +1: the mask token
+        self.embed = Embedding(c.video_vocab + 1, c.d_model, c.dtype, name="vid_embed")
         self.param("pos", (c.frames * c.tokens_per_frame, c.d_model), normal_init(0.01),
                    c.dtype)
-        self.final_ln = LayerNorm(c.d_model, dtype=c.dtype)
-        self.head = Dense(c.d_model, c.video_vocab, False, c.dtype)
+        self.final_ln = LayerNorm(c.d_model, dtype=c.dtype, name="final_ln")
+        self.head = Dense(c.d_model, c.video_vocab, False, c.dtype, name="head")
         for i in range(c.n_layers):
             self.add_module(f"layer{i}", _PhenakiLayer(c))
 
@@ -225,7 +244,8 @@ class PhenakiModel(Module):
         x = self.embed(tokens)
         x = x + self.pos[: tokens.shape[1]].to(x.dtype)[None]
         for i in range(self.cfg.n_layers):
-            x = getattr(self, f"layer{i}")(x, ctx, impl=impl)
+            with tracer.scope(f"layer{i}"):
+                x = getattr(self, f"layer{i}")(x, ctx, impl=impl)
         return self.head(self.final_ln(x))
 
     def decode_tokens(self, ctx, steps: int, *, impl="auto"):

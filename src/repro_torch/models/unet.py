@@ -4,7 +4,9 @@ Alternating ResNet blocks (GroupNorm -> SiLU -> Conv3x3, time-embedding
 injection) and attention blocks (spatial self-attention over HW tokens +
 cross-attention to the text encoding) across a downsample/upsample pyramid.
 Layout is NHWC throughout.  Sub-layers are registered under the reference
-``defs()`` keys, so the state dict is the JAX tree's flattened paths.
+``defs()`` keys, so the state dict is the JAX tree's flattened paths, and
+carry the reference's names, so their tracer events do too; each block runs
+under ``tracer.scope(<block key>)``.
 """
 
 from __future__ import annotations
@@ -15,12 +17,22 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tracer
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.models.layers.attention import Attention
 from repro_torch.models.layers.basic import Dense, sinusoidal_embedding
 from repro_torch.models.layers.conv import Conv2D, fused_gn_producer
 from repro_torch.models.layers.norms import GroupNorm, LayerNorm
 from repro_torch.nn import Module
+
+
+def _record_pointwise(name, x, reads=1):
+    """A standalone elementwise op (an unfused epilogue): reads + one write."""
+    if not tracer.active():
+        return
+    n = tracer.numel(x.shape)
+    tracer.record("pointwise", name, flops=float(n),
+                  bytes_hbm=(reads + 1) * n * tracer.dtype_bytes(x.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,13 +62,13 @@ class ResBlock(Module):
         super().__init__()
         self.c_in, self.c_out = c_in, c_out
         self.g1, self.g2 = min(groups, c_in), min(groups, c_out)
-        self.gn1 = GroupNorm(c_in, self.g1, fuse_silu=True, dtype=dtype)
-        self.conv1 = Conv2D(c_in, c_out, 3, dtype=dtype)
-        self.temb = Dense(temb_dim, c_out, True, dtype)
-        self.gn2 = GroupNorm(c_out, self.g2, fuse_silu=True, dtype=dtype)
-        self.conv2 = Conv2D(c_out, c_out, 3, dtype=dtype)
+        self.gn1 = GroupNorm(c_in, self.g1, fuse_silu=True, dtype=dtype, name="gn1")
+        self.conv1 = Conv2D(c_in, c_out, 3, dtype=dtype, name="conv1")
+        self.temb = Dense(temb_dim, c_out, True, dtype, name="temb_proj")
+        self.gn2 = GroupNorm(c_out, self.g2, fuse_silu=True, dtype=dtype, name="gn2")
+        self.conv2 = Conv2D(c_out, c_out, 3, dtype=dtype, name="conv2")
         if c_in != c_out:
-            self.skip = Conv2D(c_in, c_out, 1, dtype=dtype)
+            self.skip = Conv2D(c_in, c_out, 1, dtype=dtype, name="skip")
 
     def forward(self, x, temb, *, impl="auto"):
         t = self.temb(F.silu(temb))
@@ -64,7 +76,7 @@ class ResBlock(Module):
             # gn1 -> conv1 -> (+temb) -> gn2 -> conv2 -> (+skip) in two conv
             # passes: gn1 is an affine applied inside conv1, conv1 emits gn2's
             # channel statistics, conv2 applies gn2's affine and adds the skip.
-            a1, b1 = fused_gn_producer(x, self.gn1, groups=self.g1)
+            a1, b1 = fused_gn_producer(x, self.gn1, groups=self.g1, name="gn1_stats")
             skip = x if self.c_in == self.c_out else self.skip(x, impl=impl)
             h, stats = self.conv1(x, impl=impl, gn_affine=(a1, b1), temb=t.float(),
                                   emit_stats=True)
@@ -75,9 +87,11 @@ class ResBlock(Module):
         h = self.gn1(x, impl=impl)
         h = self.conv1(h, impl=impl)
         h = h + t[:, None, None, :].to(h.dtype)
+        _record_pointwise("temb_add", h)
         h = self.gn2(h, impl=impl)
         h = self.conv2(h, impl=impl)
         skip = x if self.c_in == self.c_out else self.skip(x, impl=impl)
+        _record_pointwise("residual_add", h, reads=2)
         return skip + h
 
 
@@ -88,18 +102,18 @@ class _TransformerLayer(Module):
     def __init__(self, channels, n_heads, head_dim, cross, dtype):
         super().__init__()
 
-        def attn(is_cross):
-            return Attention(channels, n_heads, head_dim, cross=is_cross, dtype=dtype)
+        def attn(is_cross, name):
+            return Attention(channels, n_heads, head_dim, cross=is_cross, dtype=dtype, name=name)
 
-        self.ln1 = LayerNorm(channels, dtype=dtype)
-        self.self_attn = attn(False)
-        self.ln3 = LayerNorm(channels, dtype=dtype)
-        self.ff_in = Dense(channels, 4 * channels, True, dtype)
-        self.ff_gate = Dense(channels, 4 * channels, True, dtype)
-        self.ff_out = Dense(4 * channels, channels, True, dtype)
+        self.ln1 = LayerNorm(channels, dtype=dtype, name="ln1")
+        self.self_attn = attn(False, "self_attn")
+        self.ln3 = LayerNorm(channels, dtype=dtype, name="ln3")
+        self.ff_in = Dense(channels, 4 * channels, True, dtype, name="ff_in")
+        self.ff_gate = Dense(channels, 4 * channels, True, dtype, name="ff_gate")
+        self.ff_out = Dense(4 * channels, channels, True, dtype, name="ff_out")
         if cross:
-            self.ln2 = LayerNorm(channels, dtype=dtype)
-            self.cross_attn = attn(True)
+            self.ln2 = LayerNorm(channels, dtype=dtype, name="ln2")
+            self.cross_attn = attn(True, "cross_attn")
 
 
 class SpatialTransformer(Module):
@@ -111,11 +125,11 @@ class SpatialTransformer(Module):
         super().__init__()
         self.cross, self.depth = cross, depth
         n_heads = fixed_heads or max(1, channels // head_channels)
-        self.gn = GroupNorm(channels, min(groups, channels), dtype=dtype)
-        self.proj_in = Dense(channels, channels, True, dtype)
-        self.proj_out = Dense(channels, channels, True, dtype)
+        self.gn = GroupNorm(channels, min(groups, channels), dtype=dtype, name="gn")
+        self.proj_in = Dense(channels, channels, True, dtype, name="proj_in")
+        self.proj_out = Dense(channels, channels, True, dtype, name="proj_out")
         if cross:
-            self.ctx_proj = Dense(context_dim, channels, False, dtype)
+            self.ctx_proj = Dense(context_dim, channels, False, dtype, name="ctx_proj")
         for i in range(depth):
             self.add_module(f"layer{i}", _TransformerLayer(
                 channels, n_heads, channels // n_heads, cross, dtype))
@@ -139,7 +153,7 @@ class SpatialTransformer(Module):
 class Downsample(Module):
     def __init__(self, channels: int, dtype=torch.float32):
         super().__init__()
-        self.conv = Conv2D(channels, channels, 3, stride=2, dtype=dtype)
+        self.conv = Conv2D(channels, channels, 3, stride=2, dtype=dtype, name="down")
 
     def forward(self, x, *, impl="auto"):
         return self.conv(x, impl=impl)
@@ -154,10 +168,15 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
 class Upsample(Module):
     def __init__(self, channels: int, dtype=torch.float32):
         super().__init__()
-        self.conv = Conv2D(channels, channels, 3, dtype=dtype)
+        self.conv = Conv2D(channels, channels, 3, dtype=dtype, name="up")
 
     def forward(self, x, *, impl="auto"):
-        return self.conv(upsample_nearest2x(x), impl=impl)
+        up = upsample_nearest2x(x)
+        if tracer.active():
+            # the resize writes the 4x tensor before the conv reads it back
+            tracer.record("pointwise", "upsample_resize", flops=0.0,
+                          bytes_hbm=tracer.nbytes((x.shape, x.dtype), (up.shape, up.dtype)))
+        return self.conv(up, impl=impl)
 
 
 def unet_plan(cfg: UNetConfig) -> dict:
@@ -200,11 +219,11 @@ class UNet2D(Module):
         super().__init__()
         self.cfg = cfg
         dt, mc = cfg.dtype, cfg.model_channels
-        self.conv_in = Conv2D(cfg.in_channels, mc, 3, dtype=dt)
+        self.conv_in = Conv2D(cfg.in_channels, mc, 3, dtype=dt, name="conv_in")
         self.temb1 = Dense(mc, cfg.temb_dim, True, dt)
         self.temb2 = Dense(cfg.temb_dim, cfg.temb_dim, True, dt)
         self.gn_out = GroupNorm(mc, min(cfg.groups, mc), fuse_silu=True, dtype=dt)
-        self.conv_out = Conv2D(mc, cfg.out_channels, 3, dtype=dt)
+        self.conv_out = Conv2D(mc, cfg.out_channels, 3, dtype=dt, name="conv_out")
         self.plan = unet_plan(cfg)
         for part in ("down", "up"):
             for si, blocks in enumerate(self.plan[part]):
@@ -240,12 +259,13 @@ class UNet2D(Module):
 
         def run(name, kind, h):
             mod = getattr(self, name)
-            if kind == "res":
-                return mod(h, temb, impl=impl)
-            if kind == "attn":
-                h = mod(h, context, impl=impl)
-                return h if temporal_hook is None else temporal_hook(name, h, frames)
-            return mod(h, impl=impl)
+            with tracer.scope(name):
+                if kind == "res":
+                    return mod(h, temb, impl=impl)
+                if kind == "attn":
+                    h = mod(h, context, impl=impl)
+                    return h if temporal_hook is None else temporal_hook(name, h, frames)
+                return mod(h, impl=impl)
 
         h = self.conv_in(x, impl=impl)
         skips = [h]
@@ -265,6 +285,7 @@ class UNet2D(Module):
                 h = run(f"up_{si}_{bi}_{kind}", kind, h)
 
         if conv_ops.is_fused(impl):
-            a, b = fused_gn_producer(h, self.gn_out, groups=self.gn_out.groups)
+            a, b = fused_gn_producer(h, self.gn_out, groups=self.gn_out.groups,
+                                     name="gn_out_stats")
             return self.conv_out(h, impl=impl, gn_affine=(a, b))
         return self.conv_out(self.gn_out(h, impl=impl), impl=impl)

@@ -1,6 +1,7 @@
 """Convolutional decoders to pixels, the port of ``repro.models.vae``:
 ``ConvDecoder`` (latent -> pixels) and ``VQGANDecoder`` (image tokens ->
-codebook vectors -> ``ConvDecoder``)."""
+codebook vectors -> ``ConvDecoder``).  Each decoder block runs under
+``tracer.scope("decoder/<block>")``, as the reference's."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.models.layers.basic import Embedding
 from repro_torch.models.layers.conv import Conv2D, fused_gn_producer
@@ -58,7 +60,8 @@ class ConvDecoder(Module):
             elif name.startswith("up"):
                 mod = Upsample(co, cfg.dtype)
             else:
-                mod = Conv2D(ci, co, 3, dtype=cfg.dtype)
+                mod = Conv2D(ci, co, 3, dtype=cfg.dtype,
+                             name="conv_in" if name == "conv_in" else "conv_out")
             self.add_module(name, mod)
         c_last = self.plan[-1][1]
         self.gn_out = GroupNorm(c_last, min(cfg.groups, c_last), fuse_silu=True,
@@ -69,16 +72,18 @@ class ConvDecoder(Module):
         h = z
         for name, _, _ in self.plan:
             mod = getattr(self, name)
-            if name.startswith("res"):
-                h = mod(h, temb, impl=impl)
-            elif name == "out":
-                if conv_ops.is_fused(impl):
-                    a, b = fused_gn_producer(h, self.gn_out, groups=self.gn_out.groups)
-                    h = mod(h, impl=impl, gn_affine=(a, b))
+            with tracer.scope(f"decoder/{name}"):
+                if name.startswith("res"):
+                    h = mod(h, temb, impl=impl)
+                elif name == "out":
+                    if conv_ops.is_fused(impl):
+                        a, b = fused_gn_producer(h, self.gn_out, groups=self.gn_out.groups,
+                                                 name="gn_out_stats")
+                        h = mod(h, impl=impl, gn_affine=(a, b))
+                    else:
+                        h = mod(self.gn_out(h, impl=impl), impl=impl)
                 else:
-                    h = mod(self.gn_out(h, impl=impl), impl=impl)
-            else:
-                h = mod(h, impl=impl)
+                    h = mod(h, impl=impl)
         return h
 
 

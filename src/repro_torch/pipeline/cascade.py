@@ -18,6 +18,7 @@ concurrency, and the modeled lockstep-vs-pipelined comparison behind
 
 from __future__ import annotations
 
+from repro_torch.core import tracer
 from repro_torch.pipeline.stage import (
     ParkedTask,
     StageBuffer,
@@ -25,6 +26,7 @@ from repro_torch.pipeline.stage import (
     StageTask,
     mean_demand,
     stage_unit_cost,
+    state_nbytes,
     state_signature,
 )
 from repro_torch.telemetry import SpanCollector
@@ -175,10 +177,7 @@ class CascadePipeline:
                 done += [(t.rid, self.workload.stage_output(t.state)) for t in new_tasks]
                 self.completed += len(new_tasks)
             else:
-                # the latent handoff (the reference's tracer event waits for
-                # the tracer)
-                self.spans.instant("handoff", tick=self.ticks, cat="sched", lane=name,
-                                   n=len(new_tasks), to=self.stages[i + 1].name)
+                self._handoff(i, new_tasks)
                 for t in new_tasks:
                     out_buf.push(self._task(t.rid, t.state, i + 1), now=self.ticks)
         for b in self.buffers:
@@ -186,6 +185,19 @@ class CascadePipeline:
         self.concurrency.append(executed)
         self.ticks += 1
         return done
+
+    def _handoff(self, stage_idx: int, tasks: list[StageTask]) -> None:
+        """Latent handoff between stages: the producer writes the batch's
+        state to the buffer, the consumer reads it back, one round trip of
+        the payload.  Under a trace it is an ``other`` event of twice the
+        payload, whatever the tier."""
+        src, dst = self.stages[stage_idx].name, self.stages[stage_idx + 1].name
+        self.spans.instant("handoff", tick=self.ticks, cat="sched", lane=src, n=len(tasks),
+                           to=dst)
+        if tracer.active():
+            payload = sum(state_nbytes(t.state) for t in tasks)
+            tracer.record("other", f"handoff/{src}->{dst}", flops=0.0, bytes_hbm=2.0 * payload,
+                          batch=len(tasks), stage=src)
 
     def run(self) -> dict:
         """Drain everything submitted so far; returns {rid: output}."""

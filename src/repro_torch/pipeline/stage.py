@@ -20,6 +20,7 @@ from collections import deque
 
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.kernels.tiers import resolve_model_impl
 from repro_torch.telemetry import Histogram
 from repro_torch.workload.base import (
@@ -183,7 +184,8 @@ class StageExecutor:
 
     ``impl`` is the tier requested for this stage (a ``stage_impl`` override
     or the engine's default) and ``effective_impl`` what runs: the port's
-    tier from ``resolve_model_impl``, ``kernel`` or ``torch``.  There is no
+    tier from ``resolve_model_impl``, ``kernel`` or ``torch``.  The stage
+    runs under the requested string, as ``generate`` passes it.  There is no
     fallback: a kernel that fails to build or launch raises through here.
     ``stage_index`` is the stage's position in the cost descriptor, what the
     ``(seed, rid, stage_index)`` contract keys each request's generator on."""
@@ -218,12 +220,12 @@ class StageExecutor:
         ``stage_generator(seed, rid, stage_index)``, as in ``generate``.  The
         clock is read after a device synchronisation, so ``service_s`` is the
         stage's work and not its launch."""
-        # (the reference's per-stage tracer scope goes here with the tracer)
         batched = stack_states([t.state for t in tasks])
         gens = [stage_generator(seed, t.rid, self.stage_index) for t in tasks]
         t0 = time.perf_counter()
-        new = self.workload.run_stage(params, self.stage, batched, gens,
-                                      impl=self.effective_impl, temperature=self.temperature)
+        with tracer.scope(self.stage.name):  # the scope ``generate`` opens too
+            new = self.workload.run_stage(params, self.stage, batched, gens,
+                                          impl=self.impl, temperature=self.temperature)
         synchronize(device)
         dt = time.perf_counter() - t0
         self.exec_s += dt

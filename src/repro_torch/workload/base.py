@@ -11,6 +11,8 @@ One API over the suite, as in the reference:
     ``init_stage_state`` -> the descriptor's stages via ``run_stage`` ->
     ``stage_output``; there is no other pipeline driver
   * ``cost_descriptor()``      -- the stage/step structure
+  * ``trace_events(impl)``     -- the operator event stream of one
+    representative generate, traced on ``meta`` (``core.characterize``)
 
 ``params`` is the materialised pipeline module (what ``init``/``load``
 return), the counterpart of the reference's parameter tree.  Entry points
@@ -39,6 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import tracer
 from repro_torch.kernels.tiers import resolve_model_impl
 from repro_torch.nn import init_module, materialize
 from repro_torch.nn.module import _stable_hash
@@ -292,13 +295,16 @@ class GenerativeWorkload:
         decode budget, one for the batch or one a request (the other
         workloads ignore it); ``temperature`` the LM sampling temperature (0:
         greedy).  ``on_stage(name, wall_s, batch)`` is called after each
-        stage, with the wall time up to a device synchronisation."""
+        stage, with the wall time up to a device synchronisation.  Each stage
+        runs under ``tracer.scope(stage.name)``; ``tokens`` may be a tensor
+        (a ``meta`` one under :meth:`trace_events`)."""
         stages, impls = self._stage_plan(impl, stage_impl)
         dev = resolve_device(device)
         p_dev = params_device(params)
         if p_dev.type != dev.type or dev.index not in (None, p_dev.index):
             raise ValueError(f"params live on {p_dev}, generate asked for {dev}")
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        tokens = (tokens.to(torch.int64) if isinstance(tokens, torch.Tensor)
+                  else torch.as_tensor(np.asarray(tokens), dtype=torch.int64))
         B = int(tokens.shape[0])
         rids = list(range(B)) if rids is None else list(rids)
         if len(rids) != B:
@@ -310,19 +316,24 @@ class GenerativeWorkload:
         for idx, stage in enumerate(stages):
             gens = [stage_generator(seed, rid, idx) for rid in rids]
             t0 = time.perf_counter()
-            state = self.run_stage(params, stage, state, gens, impl=impls[idx],
-                                   temperature=temperature)
+            with tracer.scope(stage.name):
+                state = self.run_stage(params, stage, state, gens, impl=impls[idx],
+                                       temperature=temperature)
             if on_stage is not None:
                 synchronize(p_dev)
                 on_stage(stage.name, time.perf_counter() - t0, B)
         return [self.stage_output(s) for s in split_state(state, B)]
 
     def _stage_plan(self, impl: str, stage_impl: dict | None):
-        """(stages, the tier each stage runs): the requested tiers as
-        ``resolve_model_impl`` maps them, ``kernel`` or ``torch``."""
+        """(stages, the ``impl`` string each stage runs under): the caller's
+        or its ``stage_impl`` override, passed on unchanged (the dispatchers
+        resolve the tier, ``resolve_model_impl``; the tracer's events read
+        the string); an unknown string raises here."""
         stages = self.cost_descriptor().stages
-        return stages, [resolve_model_impl(i)
-                        for i in resolve_stage_impls(stages, impl, stage_impl)]
+        impls = resolve_stage_impls(stages, impl, stage_impl)
+        for i in impls:
+            resolve_model_impl(i)
+        return stages, impls
 
     def init_stage_state(self, tokens, device, *, max_new_tokens: int = 0) -> dict:
         """Per-request state entering the first stage (no batch axis)."""
@@ -344,6 +355,24 @@ class GenerativeWorkload:
 
     def stage_output(self, state: dict):
         return state["out"]
+
+    # -- characterization ------------------------------------------------------
+
+    def trace_inputs(self) -> tuple:
+        """``generate``'s prompt under tracing: a ``meta`` (1, max_prompt_len)."""
+        return (torch.empty((1, self.max_prompt_len), dtype=torch.int64, device="meta"),)
+
+    def trace_events(self, impl: str = "auto") -> list:
+        """The operator event stream of one ``generate`` of the full model,
+        traced on ``meta`` (loops stand one pass for all, scaled).  ``impl``
+        is passed as the caller gives it: the events follow the string
+        (``tiers.event_impl``)."""
+        from repro_torch.core import characterize
+
+        (toks,) = self.trace_inputs()
+        return characterize.trace_workload(
+            lambda p, t: self.generate(p, t, 0, impl=impl, device="meta"),
+            characterize.abstract_params(self.model), toks)
 
 
 # ---------------------------------------------------------------------------

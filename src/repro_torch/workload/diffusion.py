@@ -13,6 +13,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.analytical import unet_block_profile
 from repro_torch.models.diffusion import DiffusionConfig, DiffusionPipeline, SRStage
 from repro_torch.models.text_encoder import TextEncoderConfig
 from repro_torch.workload.base import (
@@ -25,31 +26,6 @@ from repro_torch.workload.base import (
 
 REDUCED_TEXT = TextEncoderConfig(vocab=512, max_len=16, n_layers=2, d_model=64,
                                  n_heads=4, d_ff=128)
-
-
-def unet_block_profile(
-    latent_hw: int, channel_mult: tuple, num_res_blocks: int,
-    attn_levels: tuple, weight,
-) -> list:
-    """Walk one UNet pass (down -> mid -> up) and collect
-    ``weight(hw, mult, has_attn)`` per block; ``None`` skips the block.
-
-    The UNet block topology: hw halves per level, ``num_res_blocks`` blocks
-    down and ``num_res_blocks + 1`` up per level, and a mid block that
-    always attends."""
-    prof = []
-    hw = latent_hw
-    n = len(channel_mult)
-    for level in range(n):  # down
-        prof += [weight(hw, channel_mult[level], level in attn_levels)] * num_res_blocks
-        if level != n - 1:
-            hw //= 2
-    prof.append(weight(hw, channel_mult[-1], True))  # mid (always attends)
-    for level in reversed(range(n)):  # up
-        prof += [weight(hw, channel_mult[level], level in attn_levels)] * (num_res_blocks + 1)
-        if level != 0:
-            hw *= 2
-    return [v for v in prof if v is not None]
 
 
 def unet_demand(latent_hw: int, unet_cfg) -> tuple:

@@ -15,14 +15,21 @@ and in every batch.  A stage draws its whole budget as one block and sends
 it to the device once; the draws are sequential, so row ``t`` does not
 depend on the budget.  The reference's ``jax.random.categorical`` bits are not
 reproduced: sampled tokens agree with it in distribution only.
+
+Characterization (``trace_events``) follows the paper's profile, as the
+reference's: a 2048-token prefill once, then decode steps at 4 sampled cache
+lengths, each scaled to its share of the 64 new tokens.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.configs import reduced
 from repro_torch.configs.base import LMConfig
+from repro_torch.core import characterize, tracer
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.workload.base import (
     CostDescriptor,
@@ -34,6 +41,7 @@ from repro_torch.workload.base import (
 
 TRACE_PREFILL = 2048  # paper workload: a 2k prompt
 TRACE_DECODE = 64  # + 64 generated tokens
+TRACE_BATCH = 1  # the paper profiles single-request inference
 
 
 @register_workload(LMConfig)
@@ -127,6 +135,31 @@ class LMWorkload(GenerativeWorkload):
                       else torch.zeros((nxt.shape[0], 0), dtype=torch.int64, device=nxt.device))
             return {"max_new": state["max_new"], "out": tokens}
         raise ValueError(f"unknown LM stage {stage.name!r}")
+
+    def trace_inputs(self) -> tuple:
+        return (torch.empty((TRACE_BATCH, TRACE_PREFILL), dtype=torch.int64, device="meta"),)
+
+    def trace_events(self, impl: str = "auto") -> list:
+        """Prefill once, then decode steps at 4 sampled cache lengths
+        ``S + i * NEW // 4`` (a cache of ``cur + 1`` rows), each scaled by
+        ``NEW // 4``; events renamed ``prefill/...`` and ``decode/...``, the
+        stage scopes ``generate`` opens."""
+        model = characterize.abstract_params(self.model)
+        S, NEW = TRACE_PREFILL, TRACE_DECODE
+        (toks,) = self.trace_inputs()
+        ev = [dataclasses.replace(e, name=f"prefill/{e.name}")
+              for e in characterize.trace_workload(
+                  lambda p, t: p.prefill(t, impl=impl, max_len=S + NEW), model, toks)]
+        sample_points = 4
+        for i in range(sample_points):
+            cur = S + i * (NEW // sample_points)
+            tok1 = torch.empty((TRACE_BATCH, 1), dtype=torch.int64, device="meta")
+            step_ev = characterize.trace_workload(
+                lambda p, t, cur=cur: p.decode_step(t, p.init_cache(TRACE_BATCH, cur + 1), cur,
+                                                    impl=impl), model, tok1)
+            ev += tracer.scale_events([dataclasses.replace(e, name=f"decode/{e.name}")
+                                       for e in step_ev], NEW // sample_points)
+        return ev
 
     def stage_group_key(self, stage, state):
         # decode batches may only merge requests at the same cache position

@@ -622,3 +622,39 @@ def test_reduced_llama_served_on_the_card_gives_the_cpu_tokens(h100, route, temp
                  for dev in ("cuda", "cpu"))
     assert {r: list(map(int, v)) for r, v in card.items()} == {
         r: list(map(int, v)) for r, v in cpu.items()}
+
+
+@pytest.mark.gpu
+def test_profiler_analysis_attributes_the_hand_kernels(h100):
+    """A real conv2d and flash-attention launch under ``torch.profiler``,
+    inside a tracer scope: ``core.profiler_analysis`` puts their device time
+    under ``conv`` and ``attention`` and under the scope, and counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import profiler_analysis as pa
+    from repro_torch.core import tracer
+    from repro_torch.kernels.conv2d import conv2d as conv_k
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, 32, 32, 64), generator=g, device="cuda")
+    w = torch.randn((3, 3, 64, 64), generator=g, device="cuda")
+    q = torch.randn((2, 256, 8, 64), generator=g, device="cuda")
+    conv_k.conv2d(x, w)
+    fa_k.flash_attention(q, q, q, scale=0.125)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tracer.scope("stage"):
+            conv_k.conv2d(x, w)
+            fa_k.flash_attention(q, q, q, scale=0.125)
+        torch.cuda.synchronize()
+    hist = pa.op_histogram(prof)
+    names = {pa.kernel_category(n) for n in hist if "conv2d_kernel" in n or "fa_kernel" in n}
+    assert names == {"conv", "attention"}, list(hist)
+    cats = pa.by_category(prof)
+    assert cats["conv"] > 0 and cats["attention"] > 0
+    assert cats["attention_temporal"] == 0
+    scopes = pa.by_scope(prof)
+    assert scopes.get("stage", 0) >= 0.9 * (cats["conv"] + cats["attention"]), scopes
+    b = pa.busy(prof, window_ms=1e3)
+    assert 0 < b["busy_ms"] < 1e3 and b["launches"] >= 2

@@ -46,7 +46,10 @@ def test_checked_files_include_the_ttv_slice():
                 "models/layers/rope.py", "workload/lm.py", "telemetry/metrics.py",
                 "telemetry/spans.py", "telemetry/chrome_trace.py", "telemetry/schema.py",
                 "serving/arrivals.py", "serving/scheduler.py", "serving/engine.py",
-                "pipeline/stage.py", "pipeline/cascade.py", "launch/serve.py"):
+                "pipeline/stage.py", "pipeline/cascade.py", "launch/serve.py",
+                "core/tracer.py", "core/characterize.py", "core/perf_model.py",
+                "core/amdahl.py", "core/prefill_decode.py", "core/seq_profile.py",
+                "core/analytical.py", "core/profiler_analysis.py"):
         assert port / rel in PORT_FILES
 
 
@@ -82,6 +85,22 @@ def test_serve_engine_runs_without_jax():
         "eng = ServeEngine(wl, wl.init(0, 'cpu'), ServeConfig(route='cascade'))\n"
         "eng.submit(0, np.arange(5))\n"
         "assert tuple(eng.run()[0].shape) == (8, 8, 3)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=300)
+
+
+def test_characterization_runs_without_jax():
+    """A process that never imported ``jax`` or ``repro`` traces full-width
+    Phenaki's event stream on ``meta`` through ``core.characterize``."""
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.core import characterize, perf_model\n"
+        "from repro_torch.workload import workload_for\n"
+        "ev = characterize.trace_generative(workload_for(get_config('phenaki')))\n"
+        "assert len(ev) == 546 and perf_model.total_flops(ev) > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.tiny import TINY_TTI_CASCADE, TINY_TTV_CASCADE
+from repro_torch.kernels.tiers import resolve_model_impl
 from repro_torch.launch import serve as launcher
 from repro_torch.pipeline import (
     CascadePipeline,
@@ -376,8 +377,10 @@ def test_resolve_stage_impls_exact_prefix_and_default():
 
 
 def test_stage_impl_reaches_run_stage_as_the_ports_tiers(tiny, monkeypatch):
-    """Every stage sees its resolved tier, ``kernel`` or ``torch``, on the
-    pod and the cascade route; stats keep the requested and effective."""
+    """Every stage gets its requested string unchanged (as the reference's
+    driver passes it: the tracer's events read the string), which resolves
+    to the port's tier, ``kernel`` or ``torch``, on the pod and the cascade
+    route; stats keep the requested and effective."""
     wl, params = tiny["tti"]
     seen = {}
     orig = wl.run_stage
@@ -391,7 +394,9 @@ def test_stage_impl_reaches_run_stage_as_the_ports_tiers(tiny, monkeypatch):
     for route in ("auto", "cascade"):
         seen.clear()
         _, eng = _serve(wl, params, _prompts(wl, 3), route, stage_impl=stage_impl)
-        assert seen == {"text_encoder": {"torch"}, "denoise": {"kernel"}, "sr0": {"kernel"}}
+        assert seen == {"text_encoder": {"naive"}, "denoise": {"auto"}, "sr0": {"pallas"}}
+        assert {k: {resolve_model_impl(i) for i in v} for k, v in seen.items()} == {
+            "text_encoder": {"torch"}, "denoise": {"kernel"}, "sr0": {"kernel"}}
     st = eng.stats["cascade"]["stages"]
     assert (st["sr0"]["impl"], st["sr0"]["effective_impl"]) == ("pallas", "kernel")
     assert eng.stats["cascade"]["tiers"]["torch"]["stages"] == ["text_encoder"]
