@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py olmo-1b fleet`` runs just the named paths and
+phase 8b, for a shorter call while a path is being brought up.)
 
-Eight paths, each at full published width with random weights from a seed,
-2 requests each:
+Eleven paths, each at full published width with random weights from a
+seed, 2 requests each:
 
   - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
   - Make-A-Video text-to-video (16 frames of 64x64x4, 50 DDIM steps = 25
@@ -24,10 +26,15 @@ Eight paths, each at full published width with random weights from a seed,
     in fp32, do not fit the card): 80 causal layers of d 4096 decode image
     tokens one at a time against a KV cache (the main path decodes the first
     256 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
-    256x256; flash attention in the text encoder, conv2d in the decoder.
+    256x256; flash attention in the text encoder, conv2d in the decoder;
+  - the dense assigned LMs in fp32, as LLaMA but with 16 new tokens:
+    olmo-1b (non-parametric LayerNorm, the tied head over a vocab of 50304),
+    stablelm-3b (LayerNorm, 32 heads of 80 with 20 rotary dims) and glm4-9b
+    (GQA 32:2, QKV bias, a vocab of 151552; 37.6 GB of weights).  qwen2-72b
+    (291 GB in fp32) fits no single card and waits for several.
 
-Phases 3-7 run for each path in turn, phase 8 on three of them; each passes
-or raises, and nothing is caught:
+Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
+8b once; each passes or raises, and nothing is caught:
 
   1. device   -- the card's name, count and power limit; capability (9, 0)
   2. build    -- compile the hand-written CUDA kernels from csrc/ (nvcc);
@@ -94,13 +101,34 @@ or raises, and nothing is caught:
                  stage's batches (none on a torch-tier stage); each request's
                  wall latency runs from the start of its arrival tick to the
                  end of the tick that returned it
+  8b. fleet   -- (``[fleet]`` lines) two pools on one seed, Stable Diffusion
+                 (interactive) and olmo-1b (batch: 2048-token prompts, 32 new
+                 tokens), both at full width on this card, behind
+                 ``repro_torch.fleet.FleetRouter``: the reference's mixed
+                 scenario (6 LM requests at tick 0, 4 SD requests at ticks 2,
+                 2, 4, 4 with a deadline of 3 ticks) on 1 replica with
+                 round-robin (the FIFO baseline) and on 2 replicas with the
+                 slo policy and migration.  Each run: counts set to 0 before
+                 and read after (conv2d, flash attention and GroupNorm must
+                 launch), every request completes, the summary passes
+                 ``validate_fleet_summary`` and is mirrored into every replica
+                 engine; each SD image held to its ``generate`` (the serving
+                 tolerance; whether the bits are equal is logged), each LM
+                 request's tokens equal to its greedy ``generate`` (migrated
+                 ones too); the slo run must preempt.  Logged: each tier's
+                 deadline attainment and latency p50/p95 in ticks, migrations,
+                 preemptions, replica utilization and replica-ticks, wall
+                 seconds and requests a second.  Then the launcher in fleet
+                 mode in a subprocess (SD, 2 replicas, slo, preempt, 4
+                 requests), its summary held to the schema
 
 Each phase logs its wall time and the peak device memory it reached.  Phase
 2 logs the registers and spills of the flash-attention instances the paths
 use (``[ptxas]``).  It
 prints a ``{"kernels": [...]}`` line (each kernel's launches and times
 summed over all paths' main runs), the card's name and power limit, and,
-last, ``{"ok": true, "device": {...}}``.  Per-call details go to
+last, ``{"ok": true, "device": {...}}``; before them, the script's wall
+time from start to the result (``[total]``).  Per-call details go to
 ``build/chip_smoke/``.  Without a CUDA device it exits non-zero and prints
 no result.
 """
@@ -121,6 +149,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 SEED = 0
@@ -961,11 +990,11 @@ def characterize_path(cfg, model, tokens, rows, passes, decode_prof) -> dict:
     return out
 
 
-def output_shape(cfg):
+def output_shape(cfg, max_new: int | None = None):
     if is_lm(cfg):  # the new tokens
         from repro_torch.workload.lm import TRACE_DECODE
 
-        return (2, TRACE_DECODE)
+        return (2, max_new or TRACE_DECODE)
     if hasattr(cfg, "vq"):  # Muse, Parti: the VQ-GAN decoder's image
         hw = cfg.vq.token_hw * 2 ** (len(cfg.vq.decoder.channel_mult) - 1)
         return (2, hw, hw, 3)
@@ -1027,6 +1056,8 @@ SD_LAUNCHER_REQUESTS = 16
 # 4 of them (one batch) for the route, sampling and generate checks
 LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
 PARTI_DECODE_STEPS = 256  # of Parti's 1024 image tokens in its main path
+DENSE_LMS = ("olmo-1b", "stablelm-3b", "glm4-9b")  # fp32 on one card
+DENSE_LM_NEW = 16  # new tokens of their main paths (LLaMA: 64)
 
 
 class StageLaunches:
@@ -1291,6 +1322,218 @@ def serve_llama(wl, model, rows) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8b: fleet serving (an SD pool and an olmo-1b pool on one card)
+# ---------------------------------------------------------------------------
+
+# The reference's mixed-fleet scenario (tests/test_fleet.py): a batch front of
+# 6 LM requests at tick 0, then 4 interactive SD requests at ticks 2, 2, 4, 4
+# with a deadline of 3 ticks; the LM prompts are 2048 tokens, 32 new each
+FLEET_LM_RIDS, FLEET_SD_TICKS, FLEET_DEADLINE = tuple(range(100, 106)), (2, 2, 4, 4), 3
+FLEET_LM_PROMPT, FLEET_LM_NEW = 2048, 32
+FLEET_RUNS = {"fifo": dict(n_replicas=1, policy="round-robin", preempt=False),
+              "slo": dict(n_replicas=2, policy="slo", preempt=True)}
+
+
+def fleet_run(tag, pools, prompts, **kw) -> dict:
+    """One run of the mixed scenario through a ``FleetRouter`` on the card:
+    every count set to 0 just before and read just after; every request
+    completes; the summary passes the schema and is mirrored into every
+    replica engine's stats.  Returns its outputs, summary and numbers."""
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServeConfig
+    from repro_torch.telemetry import validate_engine_stats, validate_fleet_summary
+
+    cfg = ServeConfig(max_batch=2, pod_size=2, queue_capacity=4, seed=SEED,
+                      buckets=(SERVE_WIDTH, FLEET_LM_PROMPT))
+    fleet = FleetRouter(pools, cfg, **kw)
+    for rid in FLEET_LM_RIDS:
+        fleet.submit("lm", rid, prompts[rid], arrival_tick=0, max_new_tokens=FLEET_LM_NEW,
+                     slo_tier="batch")
+    for rid, tick in enumerate(FLEET_SD_TICKS):
+        fleet.submit("tti", rid, prompts[rid], arrival_tick=tick, slo_tier="interactive",
+                     deadline_ticks=FLEET_DEADLINE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()  # counts start at 0 just before the fleet run
+    t0 = time.perf_counter()
+    results = fleet.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(results) != sorted(prompts):
+        raise AssertionError(f"fleet {tag}: completed {sorted(results)}")
+    s = fleet.summary()
+    validate_fleet_summary(s)
+    for rep in fleet.replicas:
+        for eng in rep.engines.values():
+            if eng.stats.get("fleet") != s:
+                raise AssertionError(f"fleet {tag}: stats['fleet'] not mirrored into replica "
+                                     f"{rep.index}")
+            if eng.stats["requests"]:
+                validate_engine_stats(eng.stats, "cascade")
+    for name in ("conv2d", "flash_attention", "groupnorm_silu"):
+        if not launches.get(name):
+            raise AssertionError(f"fleet {tag}: {name} was not launched")
+    tiers = s["tiers"]
+    report = dict(wall_s=wall, rps=len(results) / wall, peak_gib=peak / 2**30,
+                  launches=launches, ticks=s["ticks"], migrations=s["migrations"],
+                  preemptions=s["preemptions"], preempted_ticks=s["preempted_ticks"],
+                  parked=s["parked"], resumed=s["resumed"],
+                  utilization=s["replicas"]["utilization"],
+                  replica_ticks=s["replicas"]["replica_ticks"],
+                  attainment={t: v["deadline_attainment"] for t, v in tiers.items()},
+                  latency_ticks={t: v["latency_ticks"] for t, v in tiers.items()},
+                  served_on={rid: c["replica"] for rid, c in fleet.completed.items()})
+    log(f"[fleet] {tag}: {len(results)} requests in {wall:.2f} s ({report['rps']:.3f} req/s), "
+        f"{s['ticks']} ticks, peak {report['peak_gib']:.2f} GiB; " + "; ".join(
+            f"{t} attainment {v['deadline_attainment']:.3f} ({v['deadline_requests']} with a "
+            f"deadline), latency ticks p50 {v['latency_ticks']['p50']:.1f} p95 "
+            f"{v['latency_ticks']['p95']:.1f}" for t, v in tiers.items())
+        + f"; {s['migrations']} migrations, {s['preemptions']} preemptions, "
+        f"{s['preempted_ticks']} preempted ticks, {s['parked']} parked / {s['resumed']} "
+        f"resumed; utilization {[round(u, 3) for u in report['utilization']]}, replica-ticks "
+        f"{report['replica_ticks']}; launches {launches}")
+    return dict(results=results, summary=s, report=report)
+
+
+def fleet_migration(pools, prompts) -> dict:
+    """Migration on the card, as the reference's migration test drives it:
+    LM requests 100 and 101 placed on replica 0 and stepped once (their
+    prefill), so they park at the prefill -> decode boundary with their KV
+    caches; SD request 0 (interactive) lands on replica 0; the router's
+    migration moves the parked pair to replica 1, where it decodes.  Counts
+    set to 0 before and read after.  Returns the outputs and numbers."""
+    from repro_torch.fleet import FleetRouter, RequestMeta
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServeConfig
+
+    cfg = ServeConfig(max_batch=2, pod_size=2, queue_capacity=4, seed=SEED,
+                      buckets=(SERVE_WIDTH, FLEET_LM_PROMPT))
+    fleet = FleetRouter(pools, cfg, n_replicas=2, policy="slo", preempt=True)
+    src, dst = fleet.replicas
+    lm_rids = FLEET_LM_RIDS[:2]
+    torch.cuda.synchronize()
+    build.launches.clear()  # counts start at 0 just before the run
+    t0 = time.perf_counter()
+    for rid in lm_rids:
+        src.submit(prompts[rid], RequestMeta(rid=rid, pool="lm", tier="batch",
+                                             deadline_ticks=None, arrival=0),
+                   max_new_tokens=FLEET_LM_NEW)
+    src.engines["lm"].step()  # the pair's prefill: parked before its decode
+    parked = sorted(src.parked_rids("lm", tier="batch"))
+    src.submit(prompts[0], RequestMeta(rid=0, pool="tti", tier="interactive",
+                                       deadline_ticks=FLEET_DEADLINE, arrival=0))
+    fleet._migrate()
+    moved = sorted(dst.meta)
+    results = {}
+    while src.pending() or dst.pending():
+        for rep in (src, dst):
+            results.update({rid: out for rid, out, _ in rep.step("slo")})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)  # read just after
+    if parked != list(lm_rids) or moved != list(lm_rids) or fleet.migrations != 2:
+        raise AssertionError(f"fleet migrate: parked {parked}, moved {moved}, "
+                             f"{fleet.migrations} migrations")
+    if sorted(results) != sorted([0, *lm_rids]) or not launches.get("flash_attention"):
+        raise AssertionError(f"fleet migrate: completed {sorted(results)}, launches {launches}")
+    resumed = dst.engines["lm"].pipeline.resumed
+    log(f"[fleet] migrate: LM rids {list(lm_rids)} prefilled on replica 0, parked at the "
+        f"prefill -> decode boundary, moved to replica 1 ({fleet.migrations} migrations, "
+        f"{resumed} resumed) and decoded there beside SD rid 0 on replica 0; {wall:.2f} s; "
+        f"launches {launches}")
+    return dict(results=results, report=dict(wall_s=wall, migrations=fleet.migrations,
+                                             resumed=resumed, launches=launches))
+
+
+def serve_fleet() -> dict:
+    """Phase 8b: two pools on one seed, Stable Diffusion (interactive) and
+    olmo-1b (batch: 2048-token prompts, 32 new tokens; it parks at the
+    prefill -> decode boundary), both at full width on this card, as the
+    reference's replicas share one host.  The mixed scenario on 1 replica
+    with round-robin (the FIFO baseline) and on 2 replicas with the slo
+    policy and migration; each SD image held to its own ``generate``, each
+    LM request's tokens to its greedy ``generate`` (the migrated ones too);
+    the slo run must preempt.  Then the launcher in fleet mode in a
+    subprocess, its fleet summary held to the schema."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.telemetry import validate_fleet_summary
+    from repro_torch.workload import workload_for
+
+    sd_wl, lm_wl = workload_for(get_config("stable-diffusion")), workload_for(
+        get_config("olmo-1b"))
+    t0 = time.perf_counter()
+    pools = {"tti": (sd_wl, sd_wl.init(SEED, "cuda")), "lm": (lm_wl, lm_wl.init(SEED, "cuda"))}
+    torch.cuda.synchronize()
+    log(f"[fleet] pools: stable-diffusion and olmo-1b at full width, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = dict(enumerate(padded(sd_wl, draw_prompts(sd_wl, len(FLEET_SD_TICKS), SEED))))
+    prompts.update({rid: rng.integers(0, lm_wl.prompt_vocab, size=FLEET_LM_PROMPT)
+                    for rid in FLEET_LM_RIDS})
+    runs = {name: fleet_run(name, pools, prompts, **kw) for name, kw in FLEET_RUNS.items()}
+    runs["migrate"] = fleet_migration(pools, prompts)
+
+    sd_rids, lm_rids = list(range(len(FLEET_SD_TICKS))), list(FLEET_LM_RIDS)
+    sd_gen = sd_wl.generate(pools["tti"][1], np.stack([prompts[r] for r in sd_rids]), SEED,
+                            device="cuda", rids=sd_rids).cpu()
+    lm_gen = lm_wl.generate(pools["lm"][1], np.stack([prompts[r] for r in lm_rids]), SEED,
+                            device="cuda", rids=lm_rids, max_new_tokens=FLEET_LM_NEW).cpu()
+    checks, errs, bits = {}, {}, {}
+    for name, run in runs.items():
+        res = run["results"]
+        rids = [r for r in sd_rids if r in res]
+        img = torch.stack([res[r] for r in rids])
+        errs[name] = max_err(img, sd_gen[rids])
+        bits[name] = bool(torch.equal(img, sd_gen[rids]))
+        assert_close(f"fleet {name} SD images vs generate", img, sd_gen[rids], SERVE_TOL)
+        checks[f"{name} LM tokens == generate"] = all(
+            [int(t) for t in res[r]] == lm_gen[i].tolist() for i, r in enumerate(lm_rids)
+            if r in res)
+    checks["slo preempted_ticks > 0"] = runs["slo"]["summary"]["preempted_ticks"] > 0
+    checks["fifo never preempts"] = runs["fifo"]["summary"]["preempted_ticks"] == 0
+    log(f"[fleet] SD images vs generate (4 x {tuple(sd_gen.shape[1:])}): max abs diff "
+        + ", ".join(f"{k} {v:.3e} (bits equal: {bits[k]})" for k, v in errs.items())
+        + f" (max |out| {sd_gen.abs().max().item():.3e}; tolerance {SERVE_TOL}); "
+        + "; ".join(f"{k}: {v}" for k, v in checks.items())
+        + f"; requests served on replica {runs['slo']['report']['served_on']} (slo run, "
+        f"{runs['slo']['summary']['migrations']} migrations)")
+    if not all(checks.values()):
+        raise AssertionError(f"fleet: {checks}")
+    f_it, s_it = (runs[r]["summary"]["tiers"]["interactive"] for r in FLEET_RUNS)
+    log(f"[fleet] interactive attainment fifo {f_it['deadline_attainment']:.3f} -> slo "
+        f"{s_it['deadline_attainment']:.3f}; interactive p95 ticks fifo "
+        f"{f_it['latency_ticks']['p95']:.1f} -> slo {s_it['latency_ticks']['p95']:.1f}")
+    del pools
+    torch.cuda.empty_cache()
+
+    stats_rel = "build/chip_smoke/fleet_stable-diffusion.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "stable-diffusion",
+           "--replicas", "2", "--router", "slo", "--preempt", "--requests", "4",
+           "--stats-json", stats_rel]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    launcher_s = time.perf_counter() - t0
+    (OUT_DIR / "fleet_stable-diffusion.log").write_text(proc.stdout + proc.stderr)
+    for line in proc.stdout.splitlines():
+        log(f"[fleet] launcher | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the fleet launcher exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    launched = json.loads((ROOT / stats_rel).read_text())
+    validate_fleet_summary(launched)
+    log(f"[fleet] launcher: rc 0 in {launcher_s:.1f} s (process, init, build load, 4 requests "
+        f"over 2 replicas); fleet summary valid")
+    return dict(runs={k: v["report"] for k, v in runs.items()}, sd_max_abs_err=errs,
+                sd_bits_equal=bits, checks=checks, launcher_s=launcher_s)
+
+
 def cut_decode(wl, steps: int):
     """``wl`` with its ``ar_decode`` stage cut to ``steps`` tokens: its
     ``generate`` decodes the first ``steps`` image tokens (``decode_ar``'s
@@ -1304,7 +1547,7 @@ def cut_decode(wl, steps: int):
 
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
-             serve_fn=None, decode_steps: int | None = None) -> dict:
+             serve_fn=None, decode_steps: int | None = None, max_new: int | None = None) -> dict:
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
     from repro_torch.nn import init_params
@@ -1313,7 +1556,9 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
     wl = workload_for(cfg)
     if decode_steps is not None:
         cut_decode(wl, decode_steps)
-    passes = stage_passes(wl, {})
+    # an LM's main path decodes ``max_new`` tokens (default: the paper's 64)
+    gen_kw = {} if max_new is None else {"max_new_tokens": max_new}
+    passes = stage_passes(wl, gen_kw)
 
     # -- 3. record ------------------------------------------------------------
     with phase(cfg.name, "init + record"):
@@ -1391,7 +1636,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
         build.launches.clear()  # counts start at 0 just before the main path
         t0 = time.perf_counter()
         out = wl.generate(model, [r.tokens for r in reqs], SEED, rids=[r.rid for r in reqs],
-                          on_stage=lambda name, s, b: stage_s.__setitem__(name, s))
+                          on_stage=lambda name, s, b: stage_s.__setitem__(name, s), **gen_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(build.launches)  # read just after
@@ -1401,7 +1646,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
             + ", ".join(f"{k} {v:.3f} s" for k, v in stage_s.items()) + "; "
             + ", ".join(f"{v:.1f} ms per {k} pass" for k, v in step_ms.items())
             + f"; peak memory {peak / 2**30:.2f} GiB; launches {launches}")
-        if tuple(out.shape) != output_shape(cfg):
+        if tuple(out.shape) != output_shape(cfg, max_new):
             raise AssertionError(f"{cfg.name}: output shape {tuple(out.shape)}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{cfg.name}: non-finite output")
@@ -1435,6 +1680,14 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
                 f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
                 f"{prof['launches']:.0f} launches; most device time (ms): "
                 + "; ".join(f"{k} {v:.2f}" for k, v in prof["top_ms"].items()))
+            if is_lm(cfg):
+                n_new = passes["decode"]
+                log(f"[lm] {cfg.name} ({n_params / 1e9:.2f} B params, {dtype}): prefill 2 x "
+                    f"{len(tokens[0])} tokens {stage_s['prefill']:.3f} s; decode "
+                    f"{stage_s['decode'] / n_new * 1e3:.2f} ms a token over {n_new} tokens; a "
+                    f"decode step: card busy {prof['busy_ms']:.2f} ms, idle share "
+                    f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; main-path peak "
+                    f"{peak / 2**30:.2f} GiB")
 
     # -- 6c. characterize: the modeled breakdown beside the measured one ---------
     with phase(cfg.name, "characterize"):
@@ -1488,7 +1741,10 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def main(only=()) -> int:
+    """Every path and phase 8b; ``only`` (path names or ``fleet``, the
+    script's arguments) runs just those, for a shorter call while a path is
+    being brought up."""
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1511,6 +1767,7 @@ def main() -> int:
         STABLE_DIFFUSION,
         with_dtype,
     )
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -1526,7 +1783,7 @@ def main() -> int:
     usage = ptxas_usage(build.nvcc_log())
     log("[ptxas] flash attention (registers, spill-store bytes): " + "; ".join(
         f"D {d} {t}: {usage[f'{t} {d}']['registers']}, {usage[f'{t} {d}']['spill_stores']}"
-        for d in (40, 64, 128, 160, 192) for t in ("f", "bf16")))
+        for d in (40, 64, 80, 128, 160, 192) for t in ("f", "bf16")))
     mma = sass_mma(build.BUILD_ROOT / build.source_hash() / build.LIB_NAME)
     log("[sass] " + ("cuobjdump not found: not checked" if mma is None else "; ".join(
         f"{fam}: {v['instances']} instances, each with >= {v['hmma_per_instance_min']} HMMA, "
@@ -1535,35 +1792,53 @@ def main() -> int:
     # -- 3-7, per path ----------------------------------------------------------
     t_all = time.perf_counter()
     spatial = ("conv2d", "flash_attention", "groupnorm_silu")
-    paths = {
-        STABLE_DIFFUSION.name: run_path(
+    runs = {
+        STABLE_DIFFUSION.name: lambda: run_path(
             STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi, kernels=spatial,
             serve_fn=serve_stable_diffusion),
-        MAKE_A_VIDEO.name: run_path(
+        MAKE_A_VIDEO.name: lambda: run_path(
             MAKE_A_VIDEO, tag="main-ttv", record_steps=2, smi=smi, kernels=tuple(SOURCES)),
-        IMAGEN.name: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi, kernels=spatial,
-                              serve_fn=serve_imagen),
-        PROD_IMAGE.name: run_path(
+        IMAGEN.name: lambda: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi,
+                                      kernels=spatial, serve_fn=serve_imagen),
+        PROD_IMAGE.name: lambda: run_path(
             PROD_IMAGE, tag="main-prod", record_steps=1, smi=smi, kernels=spatial),
-        MUSE.name: run_path(MUSE, tag="main-muse", record_steps=1, smi=smi,
-                            kernels=("conv2d", "flash_attention")),
-        PHENAKI.name: run_path(PHENAKI, tag="main-phenaki", record_steps=1, smi=smi,
-                               kernels=("flash_attention", "temporal_flash_attention")),
-        LLAMA2_7B.name: run_path(LLAMA2_7B, tag="main-lm", record_steps=1, smi=smi,
-                                 kernels=("flash_attention",), serve_fn=serve_llama),
+        MUSE.name: lambda: run_path(MUSE, tag="main-muse", record_steps=1, smi=smi,
+                                    kernels=("conv2d", "flash_attention")),
+        PHENAKI.name: lambda: run_path(PHENAKI, tag="main-phenaki", record_steps=1, smi=smi,
+                                       kernels=("flash_attention", "temporal_flash_attention")),
+        LLAMA2_7B.name: lambda: run_path(LLAMA2_7B, tag="main-lm", record_steps=1, smi=smi,
+                                         kernels=("flash_attention",), serve_fn=serve_llama),
         # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB; the
         # first PARTI_DECODE_STEPS of its 1024 tokens (ms a token is the reading)
-        PARTI.name: run_path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
-                             record_steps=1, smi=smi, kernels=("conv2d", "flash_attention"),
-                             decode_steps=PARTI_DECODE_STEPS),
+        PARTI.name: lambda: run_path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
+                                     record_steps=1, smi=smi,
+                                     kernels=("conv2d", "flash_attention"),
+                                     decode_steps=PARTI_DECODE_STEPS),
     }
+    # the dense assigned LMs in fp32, as LLaMA, with DENSE_LM_NEW new tokens
+    # (qwen2-72b, 291 GB in fp32, waits for several cards)
+    for arch in DENSE_LMS:
+        runs[arch] = lambda arch=arch: run_path(
+            get_config(arch), tag=f"main-{arch}", record_steps=1, smi=smi,
+            kernels=("flash_attention",), max_new=DENSE_LM_NEW)
+    unknown = set(only) - set(runs) - {"fleet"}
+    if unknown:
+        raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")
+    paths = {name: run() for name, run in runs.items() if not only or name in only}
     kernels = summarize(paths)
     paths_s = time.perf_counter() - t_all
     log(f"[total] {len(paths)} paths in {paths_s:.1f} s")
+    # -- 8b. fleet serving --------------------------------------------------------
+    fleet = None
+    if not only or "fleet" in only:
+        with phase("fleet", "serve"):
+            fleet = serve_fleet()
     summary = dict(device=smi, kind=kind, paths_s=paths_s, sass_mma=mma,
                    paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels,
-                   characterize={k: v["summary"]["characterize"] for k, v in paths.items()})
+                   characterize={k: v["summary"]["characterize"] for k, v in paths.items()},
+                   fleet=fleet, wall_s=time.perf_counter() - T_START)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
+    log(f"[total] chip_smoke.py {summary['wall_s']:.1f} s from start to the result")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1571,4 +1846,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

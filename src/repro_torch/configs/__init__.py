@@ -2,8 +2,9 @@
 
 The suite configs live in ``repro_torch.configs.suite``, which registers
 them when it is imported (``get_config`` imports it first; the models import
-``configs.base``, so this package imports no model).  ``reduced(cfg)``
-builds the CPU-test variant of an LM config.
+``configs.base``, so this package imports no model).  The assigned LM
+configs register when this package is imported, as the reference's do.
+``reduced(cfg)`` builds the CPU-test variant of an LM config.
 """
 
 from __future__ import annotations
@@ -44,3 +45,15 @@ def reduced(cfg: LMConfig) -> LMConfig:
         n_heads=4, n_kv_heads=min(4, max(1, cfg.n_kv_heads * 4 // max(cfg.n_heads, 1))),
         head_dim=16, d_ff=128 if cfg.d_ff else 0, vocab=256,
         window=None if cfg.window is None else 8)
+
+
+# assigned architectures: the dense ones, in the order of the reference's
+# ASSIGNED_ARCHS.  mamba2-780m, whisper-base, qwen2-vl-2b, qwen3-moe-30b-a3b,
+# deepseek-moe-16b and recurrentgemma-9b come with their families' layers
+# (SSM, enc-dec, VLM, MoE, RG-LRU) and are not registered yet.
+from repro_torch.configs import olmo_1b  # noqa: E402,F401
+from repro_torch.configs import qwen2_72b  # noqa: E402,F401
+from repro_torch.configs import glm4_9b  # noqa: E402,F401
+from repro_torch.configs import stablelm_3b  # noqa: E402,F401
+
+ASSIGNED_ARCHS = ["olmo-1b", "qwen2-72b", "glm4-9b", "stablelm-3b"]

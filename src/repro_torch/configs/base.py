@@ -2,9 +2,11 @@
 field with torch dtypes.
 
 Every field of the reference is kept, so a config copies across unchanged;
-the port builds dense decoder-only stacks only (LLaMA, and the image
-transformers' blocks).  ``family``, ``block_pattern``, ``moe``, ``ssm``,
-``encoder`` and ``window`` describe the other families: a model whose blocks
+the port builds dense decoder-only stacks only (LLaMA, the dense assigned
+LMs, and the image transformers' blocks), with RMSNorm, LayerNorm or the
+non-parametric LN and an untied or tied head.  ``family``,
+``block_pattern``, ``moe``, ``ssm``, ``encoder`` and ``window`` describe
+the other families: a model whose blocks
 are not all ``"dense"``, or that needs an encoder, qk-norm or M-RoPE, raises
 ``NotImplementedError`` where it is built (:func:`check_dense`).
 """
@@ -70,11 +72,10 @@ def check_dense(cfg: LMConfig) -> None:
     """Raise unless ``cfg`` is a dense decoder-only stack the port builds."""
     missing = sorted({t for t in cfg.block_types() if t != "dense"})
     for field, what in (("encoder", "enc-dec"), ("mrope_sections", "M-RoPE (VLM)"),
-                        ("embed_inputs", "embedding inputs (VLM)"), ("qk_norm", "qk-norm"),
-                        ("tie_embeddings", "tied embeddings")):
+                        ("embed_inputs", "embedding inputs (VLM)"), ("qk_norm", "qk-norm")):
         if getattr(cfg, field):
             missing.append(what)
-    if cfg.norm not in ("rmsnorm", "layernorm"):
+    if cfg.norm not in ("rmsnorm", "layernorm", "nonparametric_ln"):
         missing.append(f"norm {cfg.norm!r}")
     if missing:
         raise NotImplementedError(

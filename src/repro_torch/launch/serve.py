@@ -15,8 +15,15 @@ scheduling ticks and join partially drained stage queues), and
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-7b --reduced \\
         --device cpu --requests 4
 
-Sharded serving (``--mesh``) and fleet serving (``--replicas``, ``--router``,
-``--autoscale``, ``--preempt``) are not ported yet; those flags exit with a
+``--replicas``, ``--router``, ``--autoscale`` or ``--preempt`` serve in
+fleet mode: one pool of the arch behind a ``fleet.FleetRouter`` (cascade
+route forced), with a seeded ``--slo-mix`` of interactive and batch
+requests and the fleet summary (``stats["fleet"]``) reported:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stable-diffusion --reduced \
+        --device cpu --replicas 2 --router slo --preempt --requests 4
+
+Sharded serving (``--mesh``) is not ported yet; that flag exits with a
 message.
 """
 
@@ -29,12 +36,12 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, list_configs
+from repro_torch.fleet import PLACEMENT_POLICIES, AutoscalePolicy, FleetRouter
 from repro_torch.serving import PATTERNS, ArrivalTrace
 from repro_torch.serving.engine import ServeConfig, ServeEngine
 from repro_torch.telemetry import json_ready
 from repro_torch.workload import reduced_workload, workload_for
-
-PLACEMENT_POLICIES = ("round-robin", "least-queue", "slo")  # the reference's fleet routers
+from repro_torch.workload.base import params_device
 
 
 def dump_stats_json(path: str, stats: dict) -> None:
@@ -55,6 +62,66 @@ def parse_stage_impl(spec: str | None) -> dict | None:
         name, tier = part.split("=", 1)
         out[name.strip()] = tier.strip()
     return out
+
+
+def parse_autoscale(spec: str | None) -> AutoscalePolicy | None:
+    """``"1:3"`` -> AutoscalePolicy(min_replicas=1, max_replicas=3)."""
+    if not spec:
+        return None
+    try:
+        lo, hi = (int(x) for x in spec.split(":", 1))
+        return AutoscalePolicy(min_replicas=lo, max_replicas=hi)
+    except ValueError as e:
+        raise SystemExit(f"--autoscale expects MIN:MAX fleet replicas: {e}")
+
+
+def run_fleet(args, workload, params, serve_cfg, arrivals) -> dict:
+    """Fleet serving (``--replicas/--router/--autoscale/--preempt``): one
+    pool of the arch behind a ``FleetRouter``, a seeded ``--slo-mix`` tier
+    for each request, and the per-tier deadline-attainment report.  Returns
+    ``{rid: output}``."""
+    policy = args.router or "round-robin"
+    autoscale = parse_autoscale(args.autoscale)
+    fleet = FleetRouter({args.arch: (workload, params)}, serve_cfg, n_replicas=args.replicas,
+                        policy=policy, preempt=args.preempt, autoscale=autoscale)
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        tick = arrivals[rid]
+        if tick is None:
+            raise SystemExit("fleet serving needs timed arrivals (closed-loop is a "
+                             "single-engine mode)")
+        plen = int(rng.integers(4, min(workload.max_prompt_len, 30) + 1))
+        prompt = rng.integers(0, workload.prompt_vocab, size=plen)
+        interactive = bool(rng.random() < args.slo_mix)
+        fleet.submit(args.arch, rid, prompt, arrival_tick=tick, max_new_tokens=args.max_new,
+                     slo_tier="interactive" if interactive else "batch",
+                     deadline_ticks=args.deadline_ticks if interactive else None)
+    t0 = time.perf_counter()
+    results = fleet.run()
+    dt = time.perf_counter() - t0
+    s = fleet.summary()
+    scale = f" | autoscale {autoscale.min_replicas}:{autoscale.max_replicas}" if autoscale else ""
+    print(f"fleet [{policy}{', preempt' if args.preempt else ''}{scale}]: served "
+          f"{len(results)} requests in {dt:.2f}s over {s['replicas']['configured']} replicas, "
+          f"{s['ticks']} ticks")
+    for tier, t in s["tiers"].items():
+        lat = t["latency_ticks"]
+        print(f"  tier {tier}: {t['requests']} reqs | latency ticks p50 {lat['p50']:.0f} p95 "
+              f"{lat['p95']:.0f} | deadline attainment {t['deadline_attainment']:.0%} "
+              f"({t['deadline_misses']} misses / {t['deadline_requests']} deadlined)")
+    print(f"  preemption: {s['preempted_ticks']} preempted ticks, {s['preemptions']} events, "
+          f"{s['parked']} parked / {s['resumed']} resumed, {s['migrations']} migrations")
+    util = ", ".join(f"r{i}={u:.0%}" for i, u in enumerate(s["replicas"]["utilization"]))
+    print(f"  replicas: {util} | mean active {s['replicas']['mean_active']:.2f} | replica-ticks "
+          f"{s['replicas']['replica_ticks']}")
+    if s["autoscale"] is not None:
+        print(f"  autoscale events: {s['autoscale']['scale_events']}")
+    if args.trace_out:
+        n = fleet.export_chrome_trace(args.trace_out)
+        print(f"chrome trace ({n} events, per-replica tracks) -> {args.trace_out}")
+    if args.stats_json:
+        dump_stats_json(args.stats_json, s)
+    return results
 
 
 def parse_args(argv=None):
@@ -92,19 +159,30 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="sharded serving over a device mesh: not ported yet")
     ap.add_argument("--seed", type=int, default=0)
-    # -- fleet serving: not ported yet -----------------------------------------
-    ap.add_argument("--replicas", type=int, default=1, help="fleet mode: not ported yet")
+    # -- fleet serving ---------------------------------------------------------
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="fleet mode: serve across N engine replicas (cascade route forced)")
     ap.add_argument("--router", default=None, choices=PLACEMENT_POLICIES,
-                    help="fleet placement policy: not ported yet")
-    ap.add_argument("--preempt", action="store_true", help="fleet preemption: not ported yet")
+                    help="fleet placement policy (implies fleet mode)")
+    ap.add_argument("--slo-mix", type=float, default=0.5,
+                    help="fleet: fraction of requests in the interactive SLO tier (seeded "
+                         "per-request assignment; the rest are batch tier)")
+    ap.add_argument("--deadline-ticks", type=int, default=25,
+                    help="fleet: end-to-end deadline of interactive-tier requests, in fleet "
+                         "ticks (batch tier is best-effort)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="fleet: migrate batch-tier work parked at stage boundaries off "
+                         "replicas with interactive backlog (requires --router slo)")
     ap.add_argument("--autoscale", default=None, metavar="MIN:MAX",
-                    help="fleet autoscaling: not ported yet")
+                    help="fleet: queue-depth autoscaling between MIN and MAX active replicas "
+                         "(overrides --replicas)")
     # -- telemetry export --------------------------------------------------------
     ap.add_argument("--stats-json", default=None, metavar="PATH",
-                    help="dump the final engine.stats as JSON")
+                    help="dump the final engine.stats (fleet mode: the fleet summary) as JSON")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="export the request-lifecycle span timeline as Chrome "
-                         "trace-event JSON (open in Perfetto)")
+                         "trace-event JSON (open in Perfetto; fleet mode: one track per "
+                         "replica engine)")
     return ap.parse_args(argv)
 
 
@@ -145,31 +223,31 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.mesh:
         raise SystemExit("--mesh: sharded serving is not ported yet "
-                         "(ROADMAP.md, open items 1.7: multi-GPU)")
-    if (args.replicas > 1 or args.router is not None or args.autoscale is not None
-            or args.preempt):
-        raise SystemExit("--replicas/--router/--autoscale/--preempt: fleet serving is not "
-                         "ported yet (ROADMAP.md, open items 1.5: fleet)")
+                         "(ROADMAP.md, open items 1.3: multi-GPU)")
 
     cfg = get_config(args.arch)
     workload = reduced_workload(cfg) if args.reduced else workload_for(cfg)
     cfg = workload.cfg
     params = workload.init(args.seed, args.device)
+    fleet_mode = (args.replicas > 1 or args.router is not None or args.autoscale is not None
+                  or args.preempt)
     serve_cfg = ServeConfig(pod_size=args.pod_size, route=args.route, impl=args.impl,
                             stage_impl=parse_stage_impl(args.stage_impl),
                             admission=args.admission, temperature=args.temperature,
                             tick_seconds=args.tick_seconds, seed=args.seed)
-    engine = ServeEngine(workload, params, serve_cfg)
+    engine = None if fleet_mode else ServeEngine(workload, params, serve_cfg)
     cd = workload.cost_descriptor()
-    print(f"arch {cfg.name} | route {engine.route} | stages "
+    print(f"arch {cfg.name} | route {'cascade' if fleet_mode else engine.route} | stages "
           + " -> ".join(f"{s.name}x{s.steps}" for s in cd.stages))
-    print(f"device {engine.device}")
+    print(f"device {params_device(params)}")
 
     arrivals = arrival_ticks(args)
     if args.arrivals != "none":
         print(f"arrivals {args.arrivals}: ticks "
               f"{[t if t is not None else 'on-completion' for t in arrivals]}"
               f" | admission {args.admission}")
+    if fleet_mode:
+        return run_fleet(args, workload, params, serve_cfg, arrivals)
 
     t0 = time.perf_counter()
     for rid, prompt in enumerate(draw_prompts(workload, args.requests, args.seed)):

@@ -36,6 +36,8 @@ class Dense(Module):
 
 
 class Embedding(Module):
+    """Token embedding, with the tied logits head (:meth:`attend`)."""
+
     def __init__(self, vocab: int, dim: int, dtype=torch.float32, name: str = "embed"):
         super().__init__()
         self.name = name
@@ -48,6 +50,20 @@ class Embedding(Module):
                           bytes_hbm=tracer.nbytes((out.shape, out.dtype))
                           + tracer.numel(ids.shape) * 4)
         return out
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits through the transposed table (the tied head), in ``x``'s
+        dtype: x (..., dim) -> (..., vocab)."""
+        table = self.table.to(x.dtype)
+        y = torch.matmul(x, table.T)
+        if tracer.active():
+            vocab, dim = table.shape
+            tracer.record(
+                "linear", f"{self.name}_logits",
+                flops=2.0 * tracer.numel(x.shape[:-1]) * dim * vocab,
+                bytes_hbm=tracer.nbytes((x.shape, x.dtype), (y.shape, y.dtype),
+                                        ((vocab, dim), x.dtype)))
+        return y
 
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:

@@ -30,20 +30,31 @@ def _record_norm(name: str, x: torch.Tensor, fused: bool, n_params: int):
 
 
 class LayerNorm(Module):
+    """LayerNorm over the last axis; ``with_scale=False, with_bias=False`` is
+    OLMo's non-parametric LN, with no leaves.  Its event counts the bytes of
+    a scale and a bias either way, as the reference's does."""
+
     eps = 1e-5
 
-    def __init__(self, dim: int, dtype=torch.float32, name: str = "layernorm"):
+    def __init__(self, dim: int, dtype=torch.float32, name: str = "layernorm", *,
+                 with_scale: bool = True, with_bias: bool = True):
         super().__init__()
         self.dim, self.name = dim, name
-        self.param("scale", (dim,), ones_init, dtype)
-        self.param("bias", (dim,), zeros_init, dtype)
+        self.with_scale, self.with_bias = with_scale, with_bias
+        if with_scale:
+            self.param("scale", (dim,), ones_init, dtype)
+        if with_bias:
+            self.param("bias", (dim,), zeros_init, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, keepdim=True, unbiased=False)
         y = (xf - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.scale.float() + self.bias.float()
+        if self.with_scale:
+            y = y * self.scale.float()
+        if self.with_bias:
+            y = y + self.bias.float()
         _record_norm(self.name, x, fused=True, n_params=2 * self.dim)
         return y.to(x.dtype)
 

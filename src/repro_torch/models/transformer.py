@@ -35,8 +35,16 @@ from repro_torch.nn import Module, layer_views, stack_params
 
 
 def _norm(c: LMConfig, name: str) -> Module:
-    return (RMSNorm(c.d_model, dtype=c.dtype, name=name) if c.norm == "rmsnorm"
-            else LayerNorm(c.d_model, dtype=c.dtype, name=name))
+    """The config's norm: RMSNorm, LayerNorm, or OLMo's non-parametric LN
+    (a LayerNorm with no leaves)."""
+    if c.norm == "rmsnorm":
+        return RMSNorm(c.d_model, dtype=c.dtype, name=name)
+    if c.norm == "layernorm":
+        return LayerNorm(c.d_model, dtype=c.dtype, name=name)
+    if c.norm == "nonparametric_ln":
+        return LayerNorm(c.d_model, dtype=c.dtype, name=name, with_scale=False,
+                         with_bias=False)
+    raise ValueError(c.norm)
 
 
 class Block(Module):
@@ -113,7 +121,9 @@ def _zero_cache(group: list, batch: int, cap: int) -> AttentionCache:
 
 class TransformerLM(Module):
     """Parameter tree ``{"embed", "final_norm", "lm_head", "blocks":
-    {"g0_dense": ...}}`` with stacked groups, as the reference's."""
+    {"g0_dense": ...}}`` with stacked groups, as the reference's; with
+    ``tie_embeddings`` there is no ``lm_head`` and the logits go through the
+    embedding table (``Embedding.attend``)."""
 
     def __init__(self, cfg: LMConfig):
         super().__init__()
@@ -127,7 +137,8 @@ class TransformerLM(Module):
                 self.groups.append((t, 1))
         self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype)
         self.final_norm = _norm(cfg, "final_norm")
-        self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype, name="lm_head")
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype, name="lm_head")
         self.blocks = Module()
         for i, (t, n) in enumerate(self.groups):
             self.blocks.add_module(f"g{i}_{t}", stack_params(Block(cfg, t, causal=True), n))
@@ -150,7 +161,10 @@ class TransformerLM(Module):
             for j, layer in enumerate(group):
                 with tracer.scope(self._scope(i, j)):
                     x = layer(x, positions=positions, impl=impl)
-        return self.lm_head(self.final_norm(x))
+        return self._logits(self.final_norm(x))
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.embed.attend(x) if self.cfg.tie_embeddings else self.lm_head(x)
 
     def prefill(self, tokens: torch.Tensor, *, impl: str = "auto",
                 max_len: int | None = None):
@@ -173,7 +187,7 @@ class TransformerLM(Module):
             caches.append({"attn": kv})
         # the norm over every position, as the reference's (its event counts
         # them all); the last position's logits
-        logits = self.lm_head(self.final_norm(x)[:, -1:])
+        logits = self._logits(self.final_norm(x)[:, -1:])
         return logits, caches
 
     def init_cache(self, batch: int, max_len: int) -> list:
@@ -192,7 +206,7 @@ class TransformerLM(Module):
                 with tracer.scope(self._scope(i, j)):
                     x, _ = layer.decode(x, {"attn": AttentionCache(cache["attn"].k[j],
                                                                    cache["attn"].v[j])}, cur_len)
-        return self.lm_head(self.final_norm(x)), caches
+        return self._logits(self.final_norm(x)), caches
 
     def _scope(self, i: int, j: int) -> str:
         return f"layer_g{i}_{j}_{self.groups[i][0]}"

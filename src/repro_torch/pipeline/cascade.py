@@ -65,7 +65,7 @@ class CascadePipeline:
                  temperature: float = 0.0, spans: SpanCollector | None = None, mesh=None):
         if mesh is not None:
             raise NotImplementedError("per-stage device slices of a mesh are not ported yet "
-                                      "(ROADMAP.md, open items 1.7: multi-GPU)")
+                                      "(ROADMAP.md, open items 1.3: multi-GPU)")
         self.workload = workload
         # the owning engine passes its collector: spans join its timeline
         self.spans = spans if spans is not None else SpanCollector("pipeline")

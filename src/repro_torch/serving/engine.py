@@ -108,7 +108,7 @@ class ServeConfig:
                              f"got {self.tick_seconds}")
         if self.mesh is not None:
             raise NotImplementedError("sharded serving over a device mesh is not ported yet "
-                                      "(ROADMAP.md, open items 1.7: multi-GPU)")
+                                      "(ROADMAP.md, open items 1.3: multi-GPU)")
 
 
 class ServeEngine:

@@ -1,7 +1,8 @@
 """Observability layer for serving and the pipeline, the port of
 ``repro.telemetry`` (numpy only, no JAX): lifecycle spans on the tick clock
 and their Chrome trace export, typed metrics with the streaming
-``Histogram``, and the versioned schema of ``engine.stats``."""
+``Histogram``, and the versioned schema of ``engine.stats`` and its
+``stats["fleet"]`` block."""
 
 from repro_torch.telemetry.chrome_trace import (
     TRACE_SCHEMA_VERSION,
@@ -22,6 +23,7 @@ from repro_torch.telemetry.schema import (
     SNAPSHOT_SCHEMA_VERSION,
     STATS_SCHEMA_VERSION,
     validate_engine_stats,
+    validate_fleet_summary,
     validate_snapshot,
 )
 from repro_torch.telemetry.spans import SpanCollector, SpanEvent
@@ -43,5 +45,6 @@ __all__ = [
     "SNAPSHOT_SCHEMA_VERSION",
     "PCTL_KEYS",
     "validate_engine_stats",
+    "validate_fleet_summary",
     "validate_snapshot",
 ]

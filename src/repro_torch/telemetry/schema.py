@@ -1,14 +1,16 @@
 """Versioned schema for the serving stats surfaces, with validators; the
 port of ``repro.telemetry.schema``.
 
-``engine.stats`` (per route) and ``MetricsRegistry.snapshot()`` are the
-repo's observable contracts — ``docs/serving.md`` describes them, benches
-and tests consume them.  The validators of the fleet and mesh blocks come
-with the fleet and mesh slices of the port.  This module pins them: the stats dict carries a ``schema``
-version stamp, and the ``validate_*`` functions walk the full shape,
-collecting every violation before raising, so a drive-by key rename fails
-loudly in ``tests/test_torch_serving.py`` instead of silently breaking a
-downstream consumer.
+``engine.stats`` (per route), ``stats["fleet"]`` (``FleetRouter.summary()``)
+and ``MetricsRegistry.snapshot()`` are the repo's observable contracts —
+``docs/serving.md`` and ``docs/fleet.md`` describe them, benches and tests
+consume them.  The validator of the mesh block comes with the multi-GPU
+slice of the port.  This module pins them: the stats dict carries a
+``schema`` version stamp, and the ``validate_*`` functions walk the full
+shape, collecting every violation before raising, so a drive-by key rename
+fails loudly in ``tests/test_torch_serving.py`` or
+``tests/test_torch_fleet.py`` instead of silently breaking a downstream
+consumer.
 
 Bump the version when a key is added/renamed/retyped, and update the docs
 table in the same change.
@@ -30,6 +32,7 @@ __all__ = [
     "SNAPSHOT_SCHEMA_VERSION",
     "PCTL_KEYS",
     "validate_engine_stats",
+    "validate_fleet_summary",
     "validate_snapshot",
 ]
 
@@ -183,7 +186,63 @@ def validate_engine_stats(stats: dict, route: str) -> None:
                 _validate_cascade(c, stats["cascade"])
     else:
         c.check(False, f"unknown route {route!r}")
+    if "fleet" in stats:  # present once a fleet router drained over this engine
+        _validate_fleet(c, stats["fleet"], "stats.fleet")
     c.raise_if_failed(f"engine.stats (route={route!r})")
+
+
+def _validate_fleet(c: _Ctx, s: dict, path: str = "fleet") -> None:
+    if not c.check(isinstance(s, dict), f"{path}: expected dict"):
+        return
+    c.check(s.get("policy") in ("round-robin", "least-queue", "slo"),
+            f"{path}.policy: {s.get('policy')!r}")
+    c.check(s.get("engine_policy") in ("fifo", "slo"),
+            f"{path}.engine_policy: {s.get('engine_policy')!r}")
+    c.check(isinstance(s.get("preempt"), bool), f"{path}.preempt: expected bool")
+    c.check(isinstance(s.get("pools"), list), f"{path}.pools: expected list")
+    for k in ("ticks", "requests", "completed", "preemptions", "preempted_ticks", "parked",
+              "resumed", "migrations"):
+        c.num(s, k, path, minimum=0)
+    if c.check(isinstance(s.get("tiers"), dict), f"{path}.tiers: expected dict"):
+        for tier, t in s["tiers"].items():
+            tp = f"{path}.tiers[{tier}]"
+            c.num(t, "requests", tp, minimum=0)
+            c.num(t, "deadline_requests", tp, minimum=0)
+            c.num(t, "deadline_misses", tp, minimum=0)
+            c.num(t, "deadline_attainment", tp, minimum=0.0)
+            c.pctl(t, "latency_ticks", tp)
+            c.pctl(t, "deadline_margin_ticks", tp)  # may be negative: missed
+    if c.check(isinstance(s.get("replicas"), dict), f"{path}.replicas: expected dict"):
+        r = s["replicas"]
+        rp = f"{path}.replicas"
+        c.num(r, "configured", rp, minimum=1)
+        c.num(r, "replica_ticks", rp, minimum=0)
+        c.num(r, "mean_active", rp, minimum=0.0)
+        c.num(r, "max_active", rp, minimum=0)
+        c.check(isinstance(r.get("utilization"), list), f"{rp}.utilization: expected list")
+        if c.check(isinstance(r.get("per_replica"), list), f"{rp}.per_replica: expected list"):
+            for i, rep in enumerate(r["per_replica"]):
+                pp = f"{rp}.per_replica[{i}]"
+                c.check(isinstance(rep.get("active"), bool), f"{pp}.active: expected bool")
+                for k in ("ticks", "busy_ticks", "inflight", "preempted_ticks", "preemptions",
+                          "parked", "resumed"):
+                    c.num(rep, k, pp, minimum=0)
+                c.num(rep, "utilization", pp, minimum=0.0)
+    if c.check("autoscale" in s, f"{path}: missing key 'autoscale'"):
+        a = s["autoscale"]
+        if a is not None and c.check(isinstance(a, dict),
+                                     f"{path}.autoscale: expected dict or None"):
+            for k in ("min_replicas", "max_replicas", "target_queue", "cooldown"):
+                c.num(a, k, f"{path}.autoscale", minimum=0)
+            c.check(isinstance(a.get("scale_events"), list),
+                    f"{path}.autoscale.scale_events: expected list")
+
+
+def validate_fleet_summary(summary: dict) -> None:
+    """Validate a ``FleetRouter.summary()`` / ``stats["fleet"]`` payload."""
+    c = _Ctx()
+    _validate_fleet(c, summary, "fleet")
+    c.raise_if_failed("fleet summary")
 
 
 def validate_snapshot(snap: dict) -> None:

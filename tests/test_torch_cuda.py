@@ -180,6 +180,12 @@ TRANSFORMER_ATTN_CASES = [
 # LLaMA2-7B's prefill at full width, and a query block that starts past the
 # first keys (a chunked prefill: rows at kv_offset.. see keys 0..row)
 CAUSAL_ATTN_CASES = [(2, 2048, 2048, 32, 32, 128, 0), (1, 300, 364, 4, 4, 128, 64)]
+# The dense assigned LMs' causal prefills at full width (B, Sq, Skv, H,
+# KVH, D, kv_offset): olmo-1b (16 heads of 128), stablelm-3b (32 heads of 80,
+# 20 of them rotary), glm4-9b (GQA 32:2, a group of 16), and qwen2-72b's GQA
+# 64:8 at a shorter prompt (its path waits for several cards)
+DENSE_LM_ATTN_CASES = [(2, 2048, 2048, 16, 16, 128, 0), (2, 2048, 2048, 32, 32, 80, 0),
+                       (2, 2048, 2048, 32, 2, 128, 0), (1, 512, 512, 64, 8, 128, 0)]
 # GroupNorm (B, N, C, groups): 2 and 4 channels a group over rows that
 # overflow the cluster's shared memory (SR2's widths at 512 px)
 GN_SR_SHAPES = [(2, 262144, 64, 32), (2, 262144, 128, 32)]
@@ -516,6 +522,46 @@ def test_attention_cuda_causal_lm_shapes_match_plain(h100, case, dtype):
     assert build.launches["flash_attention"] == n + 1
     gold = t_fa_ref.attention_ref(q, k, v, **kw)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DENSE_LM_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_dense_lm_prefills_match_plain(h100, case, dtype):
+    """Causal GQA with a group of 16 (glm4-9b) and 8 (qwen2-72b), and causal
+    D = 80 (stablelm-3b): the kernel against its plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=37))
+    kw = dict(scale=case[5] ** -0.5, causal=True, kv_offset=case[6])
+    n = build.launches["flash_attention"]
+    out = kernel.flash_attention(q, k, v, **kw)
+    assert build.launches["flash_attention"] == n + 1
+    gold = t_fa_ref.attention_ref(q, k, v, **kw)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_len", [1, 1500, "per-request"])
+def test_decode_attention_gqa_group_16_matches_a_materialized_softmax(h100, kv_len):
+    """glm4-9b's decode step: 32 query heads on 2 kv heads of 128 against a
+    cache of 2064 rows, held to the softmax written out in float64."""
+    from repro_torch.kernels.flash_attention import ops
+
+    rng = np.random.default_rng(41)
+    q = rng.standard_normal((2, 1, 32, 128), np.float32)
+    kc, vc = rng.standard_normal((2, 2, 2064, 2, 128), np.float32)
+    lens = np.array([2064, 1031]) if kv_len == "per-request" else np.array([kv_len] * 2)
+    arg = torch.tensor(lens, device=h100) if kv_len == "per-request" else kv_len
+    got = ops.decode_attention(*_on(h100, torch.float32, q, kc, vc), kv_len=arg).cpu()
+    k64 = np.repeat(kc.astype(np.float64), 16, axis=2)  # kv head h // 16 for query head h
+    v64 = np.repeat(vc.astype(np.float64), 16, axis=2)
+    s = np.einsum("bhd,bshd->bhs", q[:, 0].astype(np.float64), k64) / np.sqrt(128.0)
+    s = np.where(np.arange(2064)[None, None] < lens[:, None, None], s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    gold = np.einsum("bhs,bshd->bhd", p, v64)[:, None]
+    _close(got, torch.from_numpy(gold.astype(np.float32)), F32)
 
 
 @pytest.mark.gpu

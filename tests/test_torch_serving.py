@@ -621,10 +621,13 @@ def test_launcher_draws_the_references_prompts():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh", "2x1"], "multi-GPU"), (["--replicas", "2"], "fleet"),
-    (["--router", "slo"], "fleet"), (["--autoscale", "1:2"], "fleet"),
+    (["--mesh", "2x1"], "multi-GPU"),
+    (["--replicas", "2", "--arrivals", "closed-loop", "--requests", "3"], "fleet"),
+    (["--router", "slo", "--autoscale", "3:2"], "fleet"), (["--autoscale", "1"], "fleet"),
     (["--arrival-rps", "2"], "tick-seconds"), (["--stage-impl", "sr"], "name=tier")])
 def test_launcher_refuses_what_is_not_ported_or_malformed(flags, match):
+    """Sharded serving is not ported; a fleet needs timed arrivals and a
+    MIN:MAX autoscale range; the other flags need their partners."""
     with pytest.raises(SystemExit, match=match):
         launcher.main(["--arch", "imagen", "--reduced", "--device", "cpu", "--requests", "1",
                        "--arrivals", "poisson"] + flags)
