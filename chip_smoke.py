@@ -2,9 +2,10 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py olmo-1b fleet`` runs just the named paths and
-phase 8b, for a shorter call while a path is being brought up.)
+phase 8b, ``python3 chip_smoke.py deepseek-moe-16b qwen3-moe-30b-a3b`` just
+the two MoE paths, for a shorter call while a path is being brought up.)
 
-Eleven paths, each at full published width with random weights from a
+Thirteen paths, each at full published width with random weights from a
 seed, 2 requests each:
 
   - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
@@ -25,13 +26,24 @@ seed, 2 requests each:
   - Parti, autoregressive text-to-image in bf16 (21.9 B parameters, 87.6 GB
     in fp32, do not fit the card): 80 causal layers of d 4096 decode image
     tokens one at a time against a KV cache (the main path decodes the first
-    256 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
+    128 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
     256x256; flash attention in the text encoder, conv2d in the decoder;
   - the dense assigned LMs in fp32, as LLaMA but with 16 new tokens:
     olmo-1b (non-parametric LayerNorm, the tied head over a vocab of 50304),
     stablelm-3b (LayerNorm, 32 heads of 80 with 20 rotary dims) and glm4-9b
     (GQA 32:2, QKV bias, a vocab of 151552; 37.6 GB of weights).  qwen2-72b
-    (291 GB in fp32) fits no single card and waits for several.
+    (291 GB in fp32) fits no single card and waits for several;
+  - the MoE assigned LMs in fp32, as the dense ones: deepseek-moe-16b at
+    full depth (28 layers: a dense first layer, then 27 of 64 routed
+    experts of 1408, top-6, and 2 shared; 16.4 B params, 65.5 GB) and
+    qwen3-moe-30b-a3b (GQA 32:4 with qk-norm, 128 experts of 768, top-8)
+    cut to 12 of its 48 layers (8.1 B params, 32 GB): its 48 identical MoE
+    layers are 122 GB in fp32, and in bf16 (61 GB) they would add no
+    operator the 12 lack.  The prefill drops assignments past capacity
+    (1.25: 480 rows an expert for deepseek's 2 x 2048 tokens, 320 for
+    qwen3's), as the reference does, so a prompt's tokens depend on what it
+    was batched with: no phase 8 for them.  Each decode step runs with
+    ``no_drop`` and so reads every expert's weights.
 
 Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
 8b once; each passes or raises, and nothing is caught:
@@ -60,7 +72,19 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
                  (UNet, VideoUNet, each SR UNet on its 6-channel [z, up]
                  input), one transformer backbone pass on two token rows
                  (all masks; half unmasked), the LM's prefill logits, or
-                 Parti's text encoding, first decode step and VQ-GAN image
+                 Parti's text encoding, first decode step and VQ-GAN image.
+                 On an MoE path each MoE layer's top-k choices are recorded
+                 on both tiers (a forward hook recomputes ``MoE.route`` from
+                 the layer's input): every assignment the tiers route apart
+                 must be a near tie (probability gap under 1e-5) or come
+                 after a token an earlier layer routed apart (its input has
+                 changed); with none, the logits are held to 1e-3 of their
+                 scale, and with some the count and the logits' relative L2
+                 are logged.  ``[moe]`` lines: the prefill's dropped share
+                 of assignments per layer and the largest expert load over
+                 the mean, then (after 6c) prefill s, ms a token, a decode
+                 step's card busy ms, idle share and launches, peak GiB,
+                 and the prefill's measured and modeled ``dispatch`` share
   6. main     -- the path: ``workload_for(cfg)``, 2 requests through
                  ``prepare_request`` and ``generate``, with every kernel's
                  launch count set to 0 just before and read just after; the
@@ -801,6 +825,75 @@ def is_lm(cfg) -> bool:
     return isinstance(cfg, LMConfig)
 
 
+class MoERoutes:
+    """While installed: each MoE layer's routing, in call order, recomputed
+    from the layer's input by a global forward hook (``MoE.route``): the
+    probabilities, the top-k experts and the capacity of that call."""
+
+    def __enter__(self):
+        from repro_torch.models.layers.moe import MoE
+
+        self.calls = []
+
+        def hook(module, args, kwargs, output):
+            if isinstance(module, MoE):
+                x = args[0]
+                probs, _, top_i = module.route(x.reshape(-1, x.shape[-1]))
+                self.calls.append(dict(probs=probs, top_i=top_i, n_experts=module.n_experts,
+                                       capacity=module.capacity(probs.shape[0],
+                                                                kwargs.get("no_drop", False))))
+
+        self.handle = torch.nn.modules.module.register_module_forward_hook(hook, with_kwargs=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def route_flips(kernel: list, plain: list) -> dict:
+    """The assignments (token, k-th choice) the kernel tier routes to another
+    expert than the torch tier, layer by layer.  Each is a near tie (the two
+    experts' probabilities on the torch tier less than ``NEAR_TIE`` apart)
+    or downstream: at or after the first token, in (batch, position) order,
+    that an earlier layer routed apart (its attention or the capacity order
+    carries the change on); the rest are unexplained."""
+    out = dict(differing=0, near_ties=0, downstream=0, max_near_gap=0.0, unexplained=[])
+    first = None
+    for layer, (a, b) in enumerate(zip(kernel, plain)):
+        rows, cols = (a["top_i"] != b["top_i"]).nonzero(as_tuple=True)
+        if not len(rows):
+            continue
+        p = b["probs"]
+        gap = (p[rows, a["top_i"][rows, cols]] - p[rows, b["top_i"][rows, cols]]).abs()
+        down = rows >= first if first is not None else torch.zeros_like(rows, dtype=torch.bool)
+        near = (gap < NEAR_TIE) & ~down
+        out["differing"] += len(rows)
+        out["near_ties"] += int(near.sum())
+        out["downstream"] += int(down.sum())
+        if near.any():
+            out["max_near_gap"] = max(out["max_near_gap"], gap[near].max().item())
+        bad = ~(near | down)
+        if bad.any():
+            out["unexplained"].append(dict(layer=layer, token=int(rows[bad][0]),
+                                           gap=gap[bad].max().item(), count=int(bad.sum())))
+        first = int(rows.min()) if first is None else min(first, int(rows.min()))
+    return out
+
+
+def route_stats(calls: list) -> dict:
+    """Per MoE layer of a pass: the share of assignments past capacity (the
+    ones dropped) and the largest expert load over the mean load; min /
+    mean / max over the layers."""
+    dropped, load = [], []
+    for c in calls:
+        n = torch.bincount(c["top_i"].reshape(-1), minlength=c["n_experts"]).float()
+        dropped.append(((n - c["capacity"]).clamp(min=0).sum() / n.sum()).item())
+        load.append((n.max() / n.mean()).item())
+    return dict(layers=len(calls), capacity=calls[0]["capacity"], dropped_min=min(dropped),
+                dropped_mean=float(np.mean(dropped)), dropped_max=max(dropped),
+                load_mean=float(np.mean(load)), load_max=max(load))
+
+
 def host_ms(fn, passes: int = 1, rounds: int = 3) -> float:
     """Median over ``rounds`` of the host-clock ms a pass of ``passes``
     calls takes, up to a synchronisation (the window a pass holds the card;
@@ -1055,9 +1148,15 @@ SD_LAUNCHER_REQUESTS = 16
 # 64 new tokens; a backlog of 16 for the rate and the latency percentiles,
 # 4 of them (one batch) for the route, sampling and generate checks
 LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
-PARTI_DECODE_STEPS = 256  # of Parti's 1024 image tokens in its main path
+# of Parti's 1024 image tokens in its main path (ms a token is the reading;
+# 128 leaves the whole script room for the MoE paths)
+PARTI_DECODE_STEPS = 128
 DENSE_LMS = ("olmo-1b", "stablelm-3b", "glm4-9b")  # fp32 on one card
 DENSE_LM_NEW = 16  # new tokens of their main paths (LLaMA: 64)
+# The MoE LMs in fp32 and their layers on the card (None: all); qwen3's 48
+# identical MoE layers are cut to 12 (122 GB of fp32 weights)
+MOE_LMS = {"deepseek-moe-16b": None, "qwen3-moe-30b-a3b": 12}
+NEAR_TIE = 1e-5  # a probability gap the two tiers' routings may part on
 
 
 class StageLaunches:
@@ -1548,6 +1647,7 @@ def cut_decode(wl, steps: int):
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
              serve_fn=None, decode_steps: int | None = None, max_new: int | None = None) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
     from repro_torch.nn import init_params
@@ -1592,10 +1692,13 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
 
     # -- 5. the kernel tier against the torch tier at full width ------------------
     with phase(cfg.name, "tiers"):
-        tier_ms, tier_err, tier_f32_err = {}, {}, {}
+        tier_ms, tier_err, tier_f32_err, moe = {}, {}, {}, None
         with torch.inference_mode():
             for name, what, fn, f32 in tier_checks(model, cfg, tokens):
-                out = {impl: fn(impl) for impl in ("kernel", "torch")}
+                out, routes = {}, {}
+                for impl in ("kernel", "torch"):
+                    with MoERoutes() as routes[impl]:
+                        out[impl] = fn(impl)
                 tier_ms[name] = {impl: time_ms(lambda: fn(impl), min_total_ms=0, max_reps=3)
                                  for impl in ("kernel", "torch")}
                 err = tier_err[name] = max_err(out["kernel"], out["torch"])
@@ -1604,10 +1707,32 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
                     f"{tier_ms[name]['kernel']:.1f} ms, torch tier {tier_ms[name]['torch']:.1f} "
                     f"ms; max abs diff {err:.3e} (max |out| {scale:.3e}), relative L2 "
                     f"{rel_l2(out['kernel'], out['torch']):.3e}")
+                flips = None
+                if routes["kernel"].calls:  # an MoE path: its routing on both tiers
+                    flips = route_flips(routes["kernel"].calls, routes["torch"].calls)
+                    moe = dict(route_stats(routes["kernel"].calls), flips=flips,
+                               logits_rel_l2=rel_l2(out["kernel"], out["torch"]))
+                    log(f"[moe] {cfg.name} {name} routing, kernel vs torch tier over "
+                        f"{moe['layers']} MoE layers: {flips['differing']} assignments differ "
+                        f"({flips['near_ties']} near ties, largest gap "
+                        f"{flips['max_near_gap']:.2e}; {flips['downstream']} downstream; "
+                        f"unexplained {flips['unexplained']}); logits relative L2 "
+                        f"{moe['logits_rel_l2']:.3e}")
+                    log(f"[moe] {cfg.name} {name} capacity {moe['capacity']} rows an expert: "
+                        f"dropped share of assignments per layer min {moe['dropped_min']:.4f} "
+                        f"mean {moe['dropped_mean']:.4f} max {moe['dropped_max']:.4f}; "
+                        f"largest expert load over the mean {moe['load_max']:.3f} (layer mean "
+                        f"{moe['load_mean']:.3f})")
+                    if flips["unexplained"] or len(routes["kernel"].calls) != len(
+                            routes["torch"].calls):
+                        raise AssertionError(f"{cfg.name} {name}: the tiers route apart "
+                                             f"beyond near ties: {flips['unexplained']}")
+                del routes
                 if f32 is None:
                     # tens of chained fp32 layers, each agreeing to the kernel
-                    # tolerances above: within 1e-3 of the output's scale
-                    ok = err <= 1e-3 * max(1.0, scale)
+                    # tolerances above: within 1e-3 of the output's scale; on
+                    # an MoE path only where both tiers routed alike
+                    ok = bool(flips and flips["differing"]) or err <= 1e-3 * max(1.0, scale)
                 else:
                     # a bf16 model rounds every layer's output to 8 bits, and
                     # the two tiers' roundings part ways over 100 layers: each
@@ -1692,6 +1817,18 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
     # -- 6c. characterize: the modeled breakdown beside the measured one ---------
     with phase(cfg.name, "characterize"):
         chz = characterize_path(cfg, model, tokens, rows, passes, prof)
+    if moe is not None:
+        n_new, pre = passes["decode"], chz["stages"]["prefill"]
+        full = get_config(cfg.name)
+        log(f"[moe] {cfg.name} ({n_params / 1e9:.2f} B params, {dtype}, {cfg.n_layers} of "
+            f"{full.n_layers} layers): prefill 2 x {len(tokens[0])} tokens "
+            f"{stage_s['prefill']:.3f} s, dropped share per layer {moe['dropped_min']:.4f} / "
+            f"{moe['dropped_mean']:.4f} / {moe['dropped_max']:.4f}, expert load over the mean up "
+            f"to {moe['load_max']:.3f}; decode {stage_s['decode'] / n_new * 1e3:.2f} ms a token "
+            f"over {n_new} tokens; a decode step: card busy {prof['busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; main-path peak "
+            f"{peak / 2**30:.2f} GiB; prefill dispatch share measured "
+            f"{pre['shares']['dispatch']:.4f}, modeled {pre['modeled'].get('dispatch', 0.0):.4f}")
 
     # -- 7. small input: the card's kernel path against the CPU plain path --------
     with phase(cfg.name, "small"):
@@ -1731,7 +1868,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
         params_m=n_params / 1e6, dtype=dtype, init_s=init_s,
         passes=passes, generate_s=wall, stage_s=stage_s, step_ms=step_ms, tier_ms=tier_ms,
         peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err,
-        tier_vs_fp32_rel_l2=tier_f32_err, decode_profile=prof, characterize=chz,
+        tier_vs_fp32_rel_l2=tier_f32_err, moe=moe, decode_profile=prof, characterize=chz,
         small_err=small_err,
         launches=launches, kernels=per_kernel, **split))
 
@@ -1821,6 +1958,12 @@ def main(only=()) -> int:
         runs[arch] = lambda arch=arch: run_path(
             get_config(arch), tag=f"main-{arch}", record_steps=1, smi=smi,
             kernels=("flash_attention",), max_new=DENSE_LM_NEW)
+    # the MoE LMs in fp32, as the dense ones; qwen3 cut to MOE_LMS's layers
+    for arch, layers in MOE_LMS.items():
+        cfg = get_config(arch)
+        runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
+            run_path(cfg, tag=f"main-{cfg.name}", record_steps=1, smi=smi,
+                     kernels=("flash_attention",), max_new=DENSE_LM_NEW))
     unknown = set(only) - set(runs) - {"fleet"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.configs.base import LMConfig, check_dense
+from repro_torch.configs.base import LMConfig, check_ported
 
 _REGISTRY: dict[str, Any] = {}
 
@@ -38,22 +38,33 @@ def list_configs() -> list[str]:
 
 def reduced(cfg: LMConfig) -> LMConfig:
     """Tiny same-family config for CPU tests (``repro.configs.reduced``):
-    the dense branch; the other families' reductions come with them."""
-    check_dense(cfg)
-    return dataclasses.replace(
-        cfg, name=cfg.name + "-reduced", n_layers=max(2, min(4, cfg.n_layers)), d_model=64,
+    the dense and MoE branches; the other families' reductions come with
+    them."""
+    check_ported(cfg)
+    changes: dict = dict(
+        name=cfg.name + "-reduced", n_layers=max(2, min(4, cfg.n_layers)), d_model=64,
         n_heads=4, n_kv_heads=min(4, max(1, cfg.n_kv_heads * 4 // max(cfg.n_heads, 1))),
         head_dim=16, d_ff=128 if cfg.d_ff else 0, vocab=256,
         window=None if cfg.window is None else 8)
+    if cfg.moe is not None:
+        # capacity covers the worst case, so no assignment is dropped and
+        # prefill == decode holds exactly
+        changes.update(d_ff=128, moe=dataclasses.replace(
+            cfg.moe, n_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff_expert=32,
+            d_ff_shared=64 if cfg.moe.n_shared else 0, capacity_factor=8.0))
+    return dataclasses.replace(cfg, **changes)
 
 
-# assigned architectures: the dense ones, in the order of the reference's
-# ASSIGNED_ARCHS.  mamba2-780m, whisper-base, qwen2-vl-2b, qwen3-moe-30b-a3b,
-# deepseek-moe-16b and recurrentgemma-9b come with their families' layers
-# (SSM, enc-dec, VLM, MoE, RG-LRU) and are not registered yet.
+# assigned architectures: the dense and MoE ones, in the order of the
+# reference's ASSIGNED_ARCHS.  mamba2-780m, whisper-base, qwen2-vl-2b and
+# recurrentgemma-9b come with their families' layers (SSM, enc-dec, VLM,
+# RG-LRU) and are not registered yet.
 from repro_torch.configs import olmo_1b  # noqa: E402,F401
 from repro_torch.configs import qwen2_72b  # noqa: E402,F401
 from repro_torch.configs import glm4_9b  # noqa: E402,F401
 from repro_torch.configs import stablelm_3b  # noqa: E402,F401
+from repro_torch.configs import qwen3_moe_30b_a3b  # noqa: E402,F401
+from repro_torch.configs import deepseek_moe_16b  # noqa: E402,F401
 
-ASSIGNED_ARCHS = ["olmo-1b", "qwen2-72b", "glm4-9b", "stablelm-3b"]
+ASSIGNED_ARCHS = ["olmo-1b", "qwen2-72b", "glm4-9b", "stablelm-3b", "qwen3-moe-30b-a3b",
+                  "deepseek-moe-16b"]

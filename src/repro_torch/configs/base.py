@@ -1,14 +1,15 @@
 """The LM config of the port (``repro.configs.base.LMConfig``), field for
-field with torch dtypes.
+field with torch dtypes, and its ``MoESpec``.
 
-Every field of the reference is kept, so a config copies across unchanged;
-the port builds dense decoder-only stacks only (LLaMA, the dense assigned
-LMs, and the image transformers' blocks), with RMSNorm, LayerNorm or the
-non-parametric LN and an untied or tied head.  ``family``,
-``block_pattern``, ``moe``, ``ssm``, ``encoder`` and ``window`` describe
-the other families: a model whose blocks
-are not all ``"dense"``, or that needs an encoder, qk-norm or M-RoPE, raises
-``NotImplementedError`` where it is built (:func:`check_dense`).
+Every field of the reference is kept, so a config copies across unchanged.
+The port builds decoder-only stacks of ``"dense"`` and ``"moe"`` blocks
+(LLaMA, the dense and MoE assigned LMs, and the image transformers'
+blocks), with RMSNorm, LayerNorm or the non-parametric LN, optional
+qk-norm, and an untied or tied head.  ``ssm``, ``encoder`` and ``window``
+describe the other families: a model with ``"mamba2"``, ``"rglru"`` or
+``"local_attn"`` blocks, or that needs an encoder, M-RoPE or embedding
+inputs, raises ``NotImplementedError`` where it is built
+(:func:`check_ported`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,19 @@ import dataclasses
 from typing import Any
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """The reference's ``repro.configs.base.MoESpec``, field for field."""
+
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    d_ff_shared: int = 0
+    first_k_dense: int = 0  # leading dense (non-MoE) layers (DeepSeekMoE: 1)
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +57,7 @@ class LMConfig:
     # per-layer block pattern, cycled to n_layers:
     # "dense" | "moe" | "mamba2" | "rglru" | "local_attn"
     block_pattern: tuple = ("dense",)
-    moe: Any = None  # the reference's MoESpec
+    moe: MoESpec | None = None
     ssm: Any = None  # SSMSpec
     encoder: Any = None  # EncoderSpec (enc-dec, whisper)
     embed_inputs: bool = False  # inputs are embeddings (vlm stub frontend)
@@ -68,16 +82,20 @@ class LMConfig:
         return self.encoder is not None
 
 
-def check_dense(cfg: LMConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder-only stack the port builds."""
-    missing = sorted({t for t in cfg.block_types() if t != "dense"})
+PORTED_BLOCKS = ("dense", "moe")
+
+
+def check_ported(cfg: LMConfig) -> None:
+    """Raise unless ``cfg`` is a decoder-only stack of blocks the port
+    builds (:data:`PORTED_BLOCKS`)."""
+    missing = sorted({t for t in cfg.block_types() if t not in PORTED_BLOCKS})
     for field, what in (("encoder", "enc-dec"), ("mrope_sections", "M-RoPE (VLM)"),
-                        ("embed_inputs", "embedding inputs (VLM)"), ("qk_norm", "qk-norm")):
+                        ("embed_inputs", "embedding inputs (VLM)")):
         if getattr(cfg, field):
             missing.append(what)
     if cfg.norm not in ("rmsnorm", "layernorm", "nonparametric_ln"):
         missing.append(f"norm {cfg.norm!r}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port builds dense "
-            "decoder-only stacks, and the other LM families come with their own slice")
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the port builds dense and "
+            "MoE decoder-only stacks, and the other LM families come with their own slice")

@@ -12,7 +12,11 @@ reductions (the norms' statistics) ``norm``, elementwise kernels
 ``pointwise``, gathers ``embed``, and everything else ``other`` (copies,
 sets, ``torch.cat``), whose share is reported, never hidden.  Scopes are the ``tracer.scope`` names
 (stages, blocks, layers), which open ``record_function`` ranges while a
-profile runs.
+profile runs.  One category follows the scope instead of the name: what
+an MoE layer launches under its routing, scatter and gather scope
+(``{name}_dispatch``, ``models.layers.moe``) is ``dispatch``, whatever the
+kernels are (a softmax, a sort, a scatter), as the reference's tracer
+counts MoE dispatch.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ CATEGORY_PATTERNS = (
     ("embed", ("index_select", "indexSelect", "index_elementwise", "gather", "embedding")),
     ("pointwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
 )
-CATEGORIES = ("attention", "linear", "conv", "norm", "pointwise", "embed", "other")
+CATEGORIES = ("attention", "linear", "conv", "norm", "pointwise", "embed", "dispatch", "other")
+DISPATCH_SCOPE = "_dispatch"  # the end of an MoE layer's dispatch scope name
 TEMPORAL_ATTENTION = "temporal_attention_kernel"
 _WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -71,6 +76,29 @@ def _is_work(e) -> bool:
 def device_events(prof) -> list:
     """The work the card ran in a profile: kernels, copies and sets."""
     return [e for e in prof.events() if _is_work(e)]
+
+
+def _launch_scopes(prof, keep=lambda name: True) -> list:
+    """Each device event of a profile with the names of the ranges (those
+    ``keep`` accepts) open on the host when it was launched: its runtime
+    call, matched by correlation id, outermost first.  Launch time, not the
+    op that launched, places it: the hand kernels are launched from Python
+    through ``ctypes``, under no ATen op."""
+    events = list(prof.events())
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = sorted((fe.time_range.start, fe.time_range.end, fe.name) for fe in events
+                    if fe.device_type == cpu and fe.is_user_annotation and keep(fe.name))
+    launch = {fe.id: fe.time_range.start for fe in events
+              if fe.device_type == cpu and not fe.is_user_annotation
+              and fe.name.startswith("cu")}
+    out = []
+    for e in events:
+        if not _is_work(e):
+            continue
+        t = launch.get(e.id)
+        out.append((e, [] if t is None or not ranges
+                    else [n for s, end, n in ranges if s <= t <= end]))
+    return out
 
 
 def _us(e) -> float:
@@ -104,12 +132,13 @@ def busy(prof, window_ms: float, passes: int = 1) -> dict:
 def by_category(prof, passes: int = 1) -> dict:
     """Device ms per pass by tracer category (every category present, 0 if
     none ran), plus ``attention_temporal``: the temporal kernel's part of
-    ``attention``."""
+    ``attention``.  Work launched inside an MoE dispatch scope is
+    ``dispatch``; the rest takes its category from its name."""
     out = dict.fromkeys(CATEGORIES, 0.0)
     out["attention_temporal"] = 0.0
-    for e in device_events(prof):
+    for e, scopes in _launch_scopes(prof, keep=lambda n: n.endswith(DISPATCH_SCOPE)):
         ms = _us(e) / 1e3 / passes
-        out[kernel_category(e.name)] += ms
+        out["dispatch" if scopes else kernel_category(e.name)] += ms
         if is_temporal_attention(e.name):
             out["attention_temporal"] += ms
     return out
@@ -127,22 +156,11 @@ def shares(categories: dict) -> dict:
 
 def by_scope(prof, passes: int = 1, depth: int | None = None) -> dict:
     """Device ms per pass by ``record_function`` scope path: the ranges open
-    on the host when each kernel, copy or set was launched (its runtime
-    call, matched by correlation id), outermost first, cut to the first
-    ``depth`` names; ``""`` outside every range.  Launch time, not the op
-    that launched, places it: the hand kernels are launched from Python
-    through ``ctypes``, under no ATen op."""
-    events = list(prof.events())
-    cpu = torch.autograd.DeviceType.CPU
-    ranges = sorted((fe.time_range.start, fe.time_range.end, fe.name) for fe in events
-                    if fe.device_type == cpu and fe.is_user_annotation)
-    launch = {fe.id: fe.time_range.start for fe in events
-              if fe.device_type == cpu and not fe.is_user_annotation
-              and fe.name.startswith("cu")}
+    on the host when each kernel, copy or set was launched
+    (:func:`_launch_scopes`), outermost first, cut to the first ``depth``
+    names; ``""`` outside every range."""
     out = collections.Counter()
-    for e in device_events(prof):
-        t = launch.get(e.id)
-        names = [] if t is None else [n for s, end, n in ranges if s <= t <= end]
+    for e, names in _launch_scopes(prof):
         out["/".join(names[:depth])] += _us(e) / 1e3 / passes
     return dict(out.most_common())
 

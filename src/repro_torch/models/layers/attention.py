@@ -1,7 +1,7 @@
 """Multi-head (GQA) attention layer (``repro.models.layers.attention.Attention``):
-self-attention, causal or bidirectional, with RoPE; cross-attention to a
-context; decode of one token against a KV cache (the paper's Table III
-Decode regime).
+self-attention, causal or bidirectional, with RoPE and optional qk-norm;
+cross-attention to a context; decode of one token against a KV cache (the
+paper's Table III Decode regime).
 
 The forward pass dispatches through ``kernels.flash_attention.ops.attention``
 (the CUDA flash-attention kernel on the ``kernel`` tier, causal mask
@@ -13,8 +13,11 @@ no-op there, while ``decode`` always rotates at the cache position.
 ``decode`` writes the new key and value into the cache in place (the
 reference's ``dynamic_update_slice`` returns a new cache; copying Parti's
 80 caches every token would move 2.7 GB a step) and returns the same cache.
-Local windows (with the ring-buffer cache), qk-norm and M-RoPE come with the
-LM families that use them (``configs.base.check_dense`` refuses those
+qk-norm (Qwen3) is an RMSNorm over ``head_dim`` on q and k (leaves
+``q_norm``, ``k_norm``) after the head split and before RoPE, as the
+reference's ``_qk_norm``; a cross-attention decode normalizes q only.
+Local windows (with the ring-buffer cache) and M-RoPE come with the LM
+families that use them (``configs.base.check_ported`` refuses those
 configs).
 
 Each attention call records the reference's event (``_attention_event``),
@@ -34,6 +37,7 @@ from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.tiers import event_impl
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.basic import Dense
+from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.nn import Module
 
 
@@ -67,9 +71,10 @@ def _attention_event(name, impl, B, Sq, Skv, H, D, dtype, causal):
 
 class Attention(Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *, n_kv_heads: int | None = None,
-                 qkv_bias: bool = False, out_bias: bool = False, rope: bool = False,
-                 rope_base: float = 10000.0, rope_pct: float = 1.0, causal: bool = False,
-                 cross: bool = False, dtype=torch.float32, name: str = "attn"):
+                 qkv_bias: bool = False, out_bias: bool = False, qk_norm: bool = False,
+                 rope: bool = False, rope_base: float = 10000.0, rope_pct: float = 1.0,
+                 causal: bool = False, cross: bool = False, dtype=torch.float32,
+                 name: str = "attn"):
         super().__init__()
         self.n_heads, self.head_dim, self.cross, self.name = n_heads, head_dim, cross, name
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
@@ -79,6 +84,10 @@ class Attention(Module):
         self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wk")
         self.wv = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wv")
         self.wo = Dense(n_heads * head_dim, d_model, out_bias, dtype, name="wo")
+        self.qk_norm = qk_norm
+        if qk_norm:
+            self.q_norm = RMSNorm(head_dim, dtype=dtype)
+            self.k_norm = RMSNorm(head_dim, dtype=dtype)
 
     def _heads(self, t: torch.Tensor, n: int) -> torch.Tensor:
         return t.reshape(t.shape[0], t.shape[1], n, self.head_dim)
@@ -102,6 +111,8 @@ class Attention(Module):
         B, S, _ = x.shape
         q = self._heads(self.wq(x), self.n_heads)
         k, v = self.project_kv(context if self.cross else x)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         if not self.cross:
             q, k = self._rope(q, positions), self._rope(k, positions)
         causal = self.causal and not self.cross
@@ -131,12 +142,16 @@ class Attention(Module):
         if self.cross:
             if cross_cache is None:
                 raise ValueError("cross-attention decode needs a cross_cache")
+            if self.qk_norm:
+                q = self.q_norm(q)
             out = attn_ops.decode_attention(q, cross_cache.k, cross_cache.v,
                                             kv_len=cross_cache.k.shape[1])
             _attention_event(self.name, "decode", B, 1, cross_cache.k.shape[1], self.n_heads,
                              self.head_dim, x.dtype, False)
             return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache
         k_new, v_new = self.project_kv(x)
+        if self.qk_norm:
+            q, k_new = self.q_norm(q), self.k_norm(k_new)
         pos = torch.full((B, 1), cur_len, dtype=torch.int32, device=x.device)
         q, k_new = self._rope(q, pos), self._rope(k_new, pos)
         cache.k[:, cur_len] = k_new[:, 0].to(cache.k.dtype)

@@ -1,21 +1,27 @@
 """Transformer blocks and the decoder-only LM (``repro.models.transformer``),
-the dense branch: the image transformers' blocks (Muse, Parti) and the LLM
-baseline (LLaMA2-7B).
+the dense and MoE branches: the image transformers' blocks (Muse, Parti),
+the LLM baseline (LLaMA2-7B) and the assigned dense and MoE LMs.
 
 ``Block`` is built from an ``LMConfig`` as the reference's: RMSNorm or
-LayerNorm, GQA self-attention with RoPE (causal or not), optional
-cross-attention to a context, and the plain or gated MLP; ``decode`` runs one
-token against the block's KV cache.  ``TransformerLM`` is the paper's Table
-III Prefill / Decode pair: ``prefill`` processes a prompt through the causal
-flash-attention kernel and leaves the caches padded to decode capacity,
+LayerNorm, GQA self-attention with RoPE (causal or not) and optional
+qk-norm, optional cross-attention to a context, and the plain or gated MLP,
+or in a ``"moe"`` block the MoE FFN (key ``moe``); ``decode`` runs one token
+against the block's KV cache.  A ``"moe"`` block's forward (the prefill)
+drops assignments past capacity, as the reference's; its decode runs with
+``no_drop``; the auxiliary loss is dropped in both, as there.
+
+``TransformerLM`` is the paper's Table III Prefill / Decode pair:
+``prefill`` processes a prompt through the causal flash-attention kernel
+and leaves the caches padded to decode capacity,
 ``decode_step`` runs one token against them.
 
 The LM keeps the reference's scanned parameter layout: each run of
 identical blocks is one group ``blocks.g{i}_{type}`` whose leaves carry a
 leading layer axis (``nn.stack_params``), so a JAX tree bridges unchanged;
 the Python loop over layers reads each layer's slice as a view
-(``nn.layer_views``).  MoE, SSM, RG-LRU, local-window, enc-dec and VLM
-blocks come with their own slices (``configs.base.check_dense``).
+(``nn.layer_views``): deepseek-moe's stack is ``g0_dense`` (its first
+layer) and ``g1_moe``.  SSM, RG-LRU, local-window, enc-dec and VLM blocks
+come with their own slices (``configs.base.check_ported``).
 
 Tracer scopes are the reference's unrolled ones: ``layer_g{i}_{j}_{type}``
 around each layer of the LM's prefill and decode step.
@@ -25,11 +31,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import LMConfig, check_dense
+from repro_torch.configs.base import PORTED_BLOCKS, LMConfig, check_ported
 from repro_torch.core import tracer
 from repro_torch.models.layers.attention import Attention, AttentionCache
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.mlp import MLP
+from repro_torch.models.layers.moe import MoE
 from repro_torch.models.layers.norms import LayerNorm, RMSNorm
 from repro_torch.nn import Module, layer_views, stack_params
 
@@ -49,27 +56,34 @@ def _norm(c: LMConfig, name: str) -> Module:
 
 class Block(Module):
     """norm1 -> self-attention -> (norm_cross -> cross-attention) -> norm2 ->
-    MLP, each with its residual, under the reference's keys ``norm1``,
-    ``attn``, ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp``.  RoPE is
-    on (``rope=not cfg.is_encdec``), and rotates only where positions are
-    given."""
+    MLP (or MoE), each with its residual, under the reference's keys
+    ``norm1``, ``attn``, ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp``
+    (``moe``).  RoPE is on (``rope=not cfg.is_encdec``), and rotates only
+    where positions are given."""
 
     def __init__(self, cfg: LMConfig, block_type: str = "dense", causal: bool = True,
                  with_cross: bool = False):
         super().__init__()
-        check_dense(cfg)
-        if block_type != "dense":
+        check_ported(cfg)
+        if block_type not in PORTED_BLOCKS:
             raise NotImplementedError(f"{block_type!r} blocks come with their LM family")
         c = cfg
-        self.with_cross = with_cross
+        self.block_type, self.with_cross = block_type, with_cross
         self.norm1 = _norm(c, "norm1")
         self.attn = Attention(
             c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
-            qkv_bias=c.qkv_bias, rope=not c.is_encdec, rope_base=c.rope_base,
-            rope_pct=c.rope_pct, causal=causal, dtype=c.dtype)
+            qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope=not c.is_encdec,
+            rope_base=c.rope_base, rope_pct=c.rope_pct, causal=causal, dtype=c.dtype)
         self.norm2 = _norm(c, "norm2")
-        self.mlp = MLP(c.d_model, c.d_ff, dtype=c.dtype, activation=c.mlp_activation,
-                       gated=c.mlp_gated)
+        if block_type == "moe":
+            m = c.moe
+            self.moe = MoE(c.d_model, m.d_ff_expert, m.n_experts, m.top_k,
+                           n_shared=m.n_shared, d_ff_shared=m.d_ff_shared,
+                           capacity_factor=m.capacity_factor, activation=c.mlp_activation,
+                           dtype=c.dtype)
+        else:
+            self.mlp = MLP(c.d_model, c.d_ff, dtype=c.dtype, activation=c.mlp_activation,
+                           gated=c.mlp_gated)
         if with_cross:
             self.cross_attn = Attention(
                 c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
@@ -89,8 +103,14 @@ class Block(Module):
         x = x + a
         if self.with_cross:
             x = x + self.cross_attn(self.norm_cross(x), context=context, impl=impl)
-        x = x + self.mlp(self.norm2(x))
+        x = x + self._ffn(self.norm2(x), no_drop=False)
         return (x, {"attn": kv}) if return_state else x
+
+    def _ffn(self, h: torch.Tensor, no_drop: bool) -> torch.Tensor:
+        """The MLP, or the MoE without its auxiliary loss."""
+        if self.block_type == "moe":
+            return self.moe(h, no_drop=no_drop)[0]
+        return self.mlp(h)
 
     def decode(self, x: torch.Tensor, state: dict, cur_len: int, *,
                cross_cache: AttentionCache | None = None):
@@ -102,7 +122,7 @@ class Block(Module):
             y, _ = self.cross_attn.decode(self.norm_cross(x), None, cur_len,
                                           cross_cache=cross_cache)
             x = x + y
-        return x + self.mlp(self.norm2(x)), {"attn": kv}
+        return x + self._ffn(self.norm2(x), no_drop=True), {"attn": kv}
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -127,7 +147,7 @@ class TransformerLM(Module):
 
     def __init__(self, cfg: LMConfig):
         super().__init__()
-        check_dense(cfg)
+        check_ported(cfg)
         self.cfg = cfg
         self.groups: list[tuple[str, int]] = []  # contiguous runs of one block type
         for t in cfg.block_types():

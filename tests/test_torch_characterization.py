@@ -394,3 +394,31 @@ def test_device_time_by_scope_follows_the_launch():
         {"denoise": 0.3, "denoise/down_0_1_attn": 0.1, "": 0.2})
     assert profiler_analysis.by_scope(prof, depth=1) == pytest.approx(
         {"denoise": 0.4, "": 0.2})
+
+
+def test_work_launched_in_an_moe_dispatch_scope_is_dispatch():
+    """A softmax, a scatter and a cat launched inside an MoE layer's
+    ``moe_dispatch`` range count as ``dispatch``, whatever their names; the
+    expert GEMM between the two ranges stays ``linear``, and a pass with no
+    such range keeps ``dispatch`` at 0."""
+    prof = _fake_profile(
+        [("void cunn_SoftMaxForward<float>", 100.0, 200.0, False, "kernel"),
+         ("void index_put_kernel<float>", 200.0, 300.0, False, "kernel"),
+         ("sm90_xmma_gemm_f32f32", 300.0, 700.0, False, "kernel"),
+         ("CatArrayBatchedCopy<float>", 700.0, 750.0, False, "kernel")],
+        host=[("layer_g1_0_moe", 0.0, 90.0, True, 0), ("moe_dispatch", 10.0, 30.0, True, 0),
+              ("moe_dispatch", 60.0, 80.0, True, 0),
+              ("cudaLaunchKernel", 11.0, 12.0, False, 1),
+              ("cudaLaunchKernel", 20.0, 21.0, False, 2),
+              ("cudaLaunchKernel", 40.0, 41.0, False, 3),
+              ("cudaLaunchKernel", 70.0, 71.0, False, 4)])
+    cats = profiler_analysis.by_category(prof)
+    assert "dispatch" in profiler_analysis.CATEGORIES
+    assert cats["dispatch"] == pytest.approx(0.25) and cats["linear"] == pytest.approx(0.4)
+    assert cats["attention"] == cats["other"] == 0.0
+    assert profiler_analysis.shares(cats)["dispatch"] == pytest.approx(0.25 / 0.65)
+    assert profiler_analysis.by_scope(prof, depth=1) == pytest.approx({"layer_g1_0_moe": 0.65})
+    plain = _fake_profile([("void cunn_SoftMaxForward<float>", 0.0, 100.0, False, "kernel")],
+                          host=[("cudaLaunchKernel", 1.0, 2.0, False, 1)])
+    cats = profiler_analysis.by_category(plain)
+    assert cats["dispatch"] == 0.0 and cats["attention"] == pytest.approx(0.1)

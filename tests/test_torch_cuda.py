@@ -186,6 +186,14 @@ CAUSAL_ATTN_CASES = [(2, 2048, 2048, 32, 32, 128, 0), (1, 300, 364, 4, 4, 128, 6
 # 64:8 at a shorter prompt (its path waits for several cards)
 DENSE_LM_ATTN_CASES = [(2, 2048, 2048, 16, 16, 128, 0), (2, 2048, 2048, 32, 32, 80, 0),
                        (2, 2048, 2048, 32, 2, 128, 0), (1, 512, 512, 64, 8, 128, 0)]
+# The MoE LMs' causal prefills at full width (B, Sq, Skv, H, KVH, D,
+# kv_offset): qwen3-moe-30b-a3b's GQA 32:4 (a group of 8) after qk-norm;
+# deepseek-moe-16b's MHA 16 x 128 is olmo-1b's shape above
+MOE_LM_ATTN_CASES = [(2, 2048, 2048, 32, 4, 128, 0)]
+# One MoE layer at full width (d, E, f, k, n_shared, d_ff_shared) over 256
+# tokens at capacity 1.25: deepseek-moe-16b's and qwen3-moe-30b-a3b's
+MOE_CARD_WIDTHS = {"deepseek-moe-16b": (2048, 64, 1408, 6, 2, 2816),
+                   "qwen3-moe-30b-a3b": (2048, 128, 768, 8, 0, 0)}
 # GroupNorm (B, N, C, groups): 2 and 4 channels a group over rows that
 # overflow the cluster's shared memory (SR2's widths at 512 px)
 GN_SR_SHAPES = [(2, 262144, 64, 32), (2, 262144, 128, 32)]
@@ -539,6 +547,76 @@ def test_attention_cuda_dense_lm_prefills_match_plain(h100, case, dtype):
     assert build.launches["flash_attention"] == n + 1
     gold = t_fa_ref.attention_ref(q, k, v, **kw)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", MOE_LM_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_moe_lm_prefills_match_plain(h100, case, dtype):
+    """Causal GQA with a group of 8 (qwen3-moe-30b-a3b's prefill): the kernel
+    against its plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=43))
+    kw = dict(scale=case[5] ** -0.5, causal=True, kv_offset=case[6])
+    n = build.launches["flash_attention"]
+    out = kernel.flash_attention(q, k, v, **kw)
+    assert build.launches["flash_attention"] == n + 1
+    gold = t_fa_ref.attention_ref(q, k, v, **kw)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+def _moe_layer(arch, seed=47):
+    """One MoE layer at ``arch``'s full width, seeded CPU weights."""
+    from repro_torch.models.layers.moe import MoE
+    from repro_torch.nn import init_params, materialize
+
+    d, E, f, k, n_shared, d_ff_shared = MOE_CARD_WIDTHS[arch]
+    layer = MoE(d, f, E, k, n_shared=n_shared, d_ff_shared=d_ff_shared)
+    return materialize(layer, init_params(layer, seed), "cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(MOE_CARD_WIDTHS))
+def test_moe_layer_on_the_card_routes_and_drops_as_the_cpu(h100, arch):
+    """256 tokens through one full-width MoE layer at capacity 1.25, on the
+    card against the CPU: the same top-k experts, so the same drops (some
+    expert is over capacity), and the output within 2e-5 of its scale."""
+    layer = _moe_layer(arch)
+    x = torch.randn((2, 128, layer.d_model), generator=torch.Generator().manual_seed(48))
+    with torch.inference_mode():
+        gold, gold_aux = layer(x)
+        _, _, top_i = layer.route(x.reshape(-1, layer.d_model))
+        card = layer.to(h100)
+        out, aux = card(x.to(h100))
+        _, _, top_i_card = card.route(x.to(h100).reshape(-1, layer.d_model))
+    assert torch.equal(top_i_card.cpu(), top_i)
+    load = torch.bincount(top_i.reshape(-1), minlength=layer.n_experts)
+    assert int(load.max()) > layer.capacity(256), (load.max(), layer.capacity(256))
+    scale = max(1.0, gold.abs().max().item())
+    np.testing.assert_allclose(out.cpu().numpy(), gold.numpy(), rtol=F32["rtol"],
+                               atol=F32["atol"] * scale)
+    np.testing.assert_allclose(aux.item(), gold_aux.item(), rtol=F32["rtol"])
+
+
+@pytest.mark.gpu
+def test_moe_all_tied_router_takes_the_lower_experts_on_the_card(h100):
+    """A zero router ties every probability: on the card as on the CPU the
+    top k are experts 0..k-1 in order (``jax.lax.top_k``), so expert 0
+    takes the first ``capacity`` tokens and drops the rest."""
+    layer = _moe_layer("qwen3-moe-30b-a3b")
+    layer.router.data.zero_()
+    x = torch.randn((1, 64, layer.d_model), generator=torch.Generator().manual_seed(49))
+    with torch.inference_mode():
+        gold, _ = layer(x)
+        card = layer.to(h100)
+        _, top_p, top_i = card.route(x.to(h100).reshape(-1, layer.d_model))
+        out, _ = card(x.to(h100))
+    assert torch.equal(top_i.cpu(), torch.arange(layer.top_k).expand(64, -1))
+    torch.testing.assert_close(top_p.cpu(), torch.full((64, layer.top_k), 1 / layer.top_k))
+    scale = max(1.0, gold.abs().max().item())
+    np.testing.assert_allclose(out.cpu().numpy(), gold.numpy(), rtol=F32["rtol"],
+                               atol=F32["atol"] * scale)
 
 
 @pytest.mark.gpu

@@ -49,13 +49,14 @@ def test_checked_files_include_the_ttv_slice():
                 "pipeline/stage.py", "pipeline/cascade.py", "launch/serve.py",
                 "core/tracer.py", "core/characterize.py", "core/perf_model.py",
                 "core/amdahl.py", "core/prefill_decode.py", "core/seq_profile.py",
-                "core/analytical.py", "core/profiler_analysis.py"):
+                "core/analytical.py", "core/profiler_analysis.py", "models/layers/moe.py",
+                "configs/deepseek_moe_16b.py", "configs/qwen3_moe_30b_a3b.py"):
         assert port / rel in PORT_FILES
 
 
 @pytest.mark.parametrize("name,stage", [
     ("muse", "parallel_decode"), ("phenaki", "parallel_decode"), ("llama2-7b", "decode"),
-    ("parti", "ar_decode")])
+    ("parti", "ar_decode"), ("deepseek-moe-16b", "decode")])
 def test_workload_builds_without_jax(name, stage):
     """A process that never imported ``jax`` or ``repro`` builds the
     full-size workload (on ``meta``: nothing is allocated)."""

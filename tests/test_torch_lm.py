@@ -344,7 +344,8 @@ def test_llama_config_matches_jax():
 
 
 def test_other_lm_families_wait_for_their_slice():
-    for change in (dict(block_pattern=("moe",)), dict(qk_norm=True),
+    for change in (dict(block_pattern=("mamba2",)),
+                   dict(block_pattern=("local_attn",), window=8),
                    dict(mrope_sections=(2, 3, 3))):
         cfg = dataclasses.replace(t_suite.LLAMA2_7B, **change)
         with pytest.raises(NotImplementedError, match="not ported"):
