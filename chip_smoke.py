@@ -2,10 +2,11 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py olmo-1b fleet`` runs just the named paths and
-phase 8b, ``python3 chip_smoke.py deepseek-moe-16b qwen3-moe-30b-a3b`` just
-the two MoE paths, for a shorter call while a path is being brought up.)
+phase 8b, ``python3 chip_smoke.py mamba2-780m recurrentgemma-9b`` just
+the two sub-quadratic LMs, for a shorter call while a path is being brought
+up.)
 
-Thirteen paths, each at full published width with random weights from a
+Fifteen paths, each at full published width with random weights from a
 seed, 2 requests each:
 
   - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
@@ -31,8 +32,11 @@ seed, 2 requests each:
   - the dense assigned LMs in fp32, as LLaMA but with 16 new tokens:
     olmo-1b (non-parametric LayerNorm, the tied head over a vocab of 50304),
     stablelm-3b (LayerNorm, 32 heads of 80 with 20 rotary dims) and glm4-9b
-    (GQA 32:2, QKV bias, a vocab of 151552; 37.6 GB of weights).  qwen2-72b
-    (291 GB in fp32) fits no single card and waits for several;
+    (GQA 32:2, QKV bias, a vocab of 151552) cut to 20 of its 40 layers
+    (its 40 identical layers launch one attention call each at one shape,
+    so 20 keep every per-call shape, and the time saved funds the two
+    sub-quadratic paths).  qwen2-72b (291 GB in fp32) fits no single card
+    and waits for several;
   - the MoE assigned LMs in fp32, as the dense ones: deepseek-moe-16b at
     full depth (28 layers: a dense first layer, then 27 of 64 routed
     experts of 1408, top-6, and 2 shared; 16.4 B params, 65.5 GB) and
@@ -43,7 +47,19 @@ seed, 2 requests each:
     (1.25: 480 rows an expert for deepseek's 2 x 2048 tokens, 320 for
     qwen3's), as the reference does, so a prompt's tokens depend on what it
     was batched with: no phase 8 for them.  Each decode step runs with
-    ``no_drop`` and so reads every expert's weights.
+    ``no_drop`` and so reads every expert's weights;
+  - the sub-quadratic assigned LMs in fp32 at full depth, 16 greedy new
+    tokens: mamba2-780m (48 Mamba-2 SSD mixers, 2048-token prompts; it
+    launches no hand kernel: attention-free, and its depthwise conv is the
+    reference's ``lax.conv``, not a Pallas kernel) and recurrentgemma-9b (26
+    RG-LRU blocks and 12 local-attention layers of MQA 16:1 at D = 256,
+    window 2048; 9.4 B params, 37.6 GB), on **3072-token** prompts: at 2048
+    the window would mask nothing, at 3072 the flash kernel masks the early
+    keys of the last 1024 rows (and skips whole key tiles), the ring cache
+    is rolled by 1024 and decode wraps it.  ``[recurrent]`` lines give the
+    prefill's and a decode step's measured and modeled ``scan`` shares (the
+    SSD's chunk products and cross-chunk loop, the RG-LRU's gates and
+    doubling scan).  Neither is served in phase 8.
 
 Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
 8b once; each passes or raises, and nothing is caught:
@@ -148,7 +164,7 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
 
 Each phase logs its wall time and the peak device memory it reached.  Phase
 2 logs the registers and spills of the flash-attention instances the paths
-use (``[ptxas]``).  It
+use (``[ptxas]``, D = 40 to 256).  It
 prints a ``{"kernels": [...]}`` line (each kernel's launches and times
 summed over all paths' main runs), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``; before them, the script's wall
@@ -1149,13 +1165,18 @@ SD_LAUNCHER_REQUESTS = 16
 # 4 of them (one batch) for the route, sampling and generate checks
 LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
 # of Parti's 1024 image tokens in its main path (ms a token is the reading;
-# 128 leaves the whole script room for the MoE paths)
+# 128 leaves the whole script room for the MoE and recurrent paths)
 PARTI_DECODE_STEPS = 128
-DENSE_LMS = ("olmo-1b", "stablelm-3b", "glm4-9b")  # fp32 on one card
+# The dense LMs in fp32 on one card and their layers there (None: all);
+# glm4-9b's 40 identical layers are cut to 20 to fund the recurrent paths
+DENSE_LMS = {"olmo-1b": None, "stablelm-3b": None, "glm4-9b": 20}
 DENSE_LM_NEW = 16  # new tokens of their main paths (LLaMA: 64)
 # The MoE LMs in fp32 and their layers on the card (None: all); qwen3's 48
 # identical MoE layers are cut to 12 (122 GB of fp32 weights)
 MOE_LMS = {"deepseek-moe-16b": None, "qwen3-moe-30b-a3b": 12}
+# The sub-quadratic LMs in fp32 at full depth, by their prompt length:
+# recurrentgemma's window of 2048 masks only past 2048 tokens
+RECURRENT_LMS = {"mamba2-780m": 2048, "recurrentgemma-9b": 3072}
 NEAR_TIE = 1e-5  # a probability gap the two tiers' routings may part on
 
 
@@ -1646,7 +1667,8 @@ def cut_decode(wl, steps: int):
 
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
-             serve_fn=None, decode_steps: int | None = None, max_new: int | None = None) -> dict:
+             serve_fn=None, decode_steps: int | None = None, max_new: int | None = None,
+             prompt_len: int | None = None) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
@@ -1671,8 +1693,8 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
         log(f"[init] full-width {cfg.name}: {n_params / 1e6:.1f} M params ({dtype}) in "
             f"{init_s:.2f} s")
         rng = torch.Generator().manual_seed(SEED)
-        tokens = [torch.randint(0, wl.prompt_vocab, (wl.max_prompt_len,), generator=rng).numpy()
-                  for _ in range(2)]
+        tokens = [torch.randint(0, wl.prompt_vocab, (prompt_len or wl.max_prompt_len,),
+                                generator=rng).numpy() for _ in range(2)]
         # one step per denoise stage (SD: 1; Make-A-Video: 1 keyframe + 1
         # temporal; Imagen: 1 base + 1 per SR stage), one unmasking step, or
         # the first 2 tokens of a decode
@@ -1812,7 +1834,9 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
                     f"{stage_s['decode'] / n_new * 1e3:.2f} ms a token over {n_new} tokens; a "
                     f"decode step: card busy {prof['busy_ms']:.2f} ms, idle share "
                     f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; main-path peak "
-                    f"{peak / 2**30:.2f} GiB")
+                    f"{peak / 2**30:.2f} GiB" + ("" if launches else
+                    "; no hand kernel launched (attention-free; its depthwise conv is the "
+                    "reference's lax.conv, not a Pallas kernel)"))
 
     # -- 6c. characterize: the modeled breakdown beside the measured one ---------
     with phase(cfg.name, "characterize"):
@@ -1829,6 +1853,13 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
             f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; main-path peak "
             f"{peak / 2**30:.2f} GiB; prefill dispatch share measured "
             f"{pre['shares']['dispatch']:.4f}, modeled {pre['modeled'].get('dispatch', 0.0):.4f}")
+
+    if is_lm(cfg) and {"mamba2", "rglru"} & set(cfg.block_types()):
+        pre, dec = chz["stages"]["prefill"], chz["stages"]["decode"]
+        log(f"[recurrent] {cfg.name}: scan share of the prefill measured "
+            f"{pre['shares']['scan']:.4f}, modeled {pre['modeled'].get('scan', 0.0):.4f} (the "
+            f"2048-token recipe); of a decode step measured {dec['shares']['scan']:.4f}, "
+            f"modeled {dec['modeled'].get('scan', 0.0):.4f}")
 
     # -- 7. small input: the card's kernel path against the CPU plain path --------
     with phase(cfg.name, "small"):
@@ -1920,7 +1951,7 @@ def main(only=()) -> int:
     usage = ptxas_usage(build.nvcc_log())
     log("[ptxas] flash attention (registers, spill-store bytes): " + "; ".join(
         f"D {d} {t}: {usage[f'{t} {d}']['registers']}, {usage[f'{t} {d}']['spill_stores']}"
-        for d in (40, 64, 80, 128, 160, 192) for t in ("f", "bf16")))
+        for d in (40, 64, 80, 128, 160, 192, 256) for t in ("f", "bf16")))
     mma = sass_mma(build.BUILD_ROOT / build.source_hash() / build.LIB_NAME)
     log("[sass] " + ("cuobjdump not found: not checked" if mma is None else "; ".join(
         f"{fam}: {v['instances']} instances, each with >= {v['hmma_per_instance_min']} HMMA, "
@@ -1954,16 +1985,23 @@ def main(only=()) -> int:
     }
     # the dense assigned LMs in fp32, as LLaMA, with DENSE_LM_NEW new tokens
     # (qwen2-72b, 291 GB in fp32, waits for several cards)
-    for arch in DENSE_LMS:
-        runs[arch] = lambda arch=arch: run_path(
-            get_config(arch), tag=f"main-{arch}", record_steps=1, smi=smi,
-            kernels=("flash_attention",), max_new=DENSE_LM_NEW)
+    for arch, layers in DENSE_LMS.items():
+        cfg = get_config(arch)
+        runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
+            run_path(cfg, tag=f"main-{cfg.name}", record_steps=1, smi=smi,
+                     kernels=("flash_attention",), max_new=DENSE_LM_NEW))
     # the MoE LMs in fp32, as the dense ones; qwen3 cut to MOE_LMS's layers
     for arch, layers in MOE_LMS.items():
         cfg = get_config(arch)
         runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
             run_path(cfg, tag=f"main-{cfg.name}", record_steps=1, smi=smi,
                      kernels=("flash_attention",), max_new=DENSE_LM_NEW))
+    # the sub-quadratic LMs in fp32 at full depth; mamba2 launches no hand kernel
+    for arch, prompt_len in RECURRENT_LMS.items():
+        runs[arch] = lambda arch=arch, prompt_len=prompt_len: run_path(
+            get_config(arch), tag=f"main-{arch}", record_steps=1, smi=smi,
+            kernels=() if arch == "mamba2-780m" else ("flash_attention",),
+            max_new=DENSE_LM_NEW, prompt_len=prompt_len)
     unknown = set(only) - set(runs) - {"fleet"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")

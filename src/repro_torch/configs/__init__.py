@@ -38,8 +38,8 @@ def list_configs() -> list[str]:
 
 def reduced(cfg: LMConfig) -> LMConfig:
     """Tiny same-family config for CPU tests (``repro.configs.reduced``):
-    the dense and MoE branches; the other families' reductions come with
-    them."""
+    the dense, MoE, SSM and window branches; the enc-dec and VLM families'
+    reductions come with them."""
     check_ported(cfg)
     changes: dict = dict(
         name=cfg.name + "-reduced", n_layers=max(2, min(4, cfg.n_layers)), d_model=64,
@@ -52,19 +52,22 @@ def reduced(cfg: LMConfig) -> LMConfig:
         changes.update(d_ff=128, moe=dataclasses.replace(
             cfg.moe, n_experts=8, top_k=min(cfg.moe.top_k, 2), d_ff_expert=32,
             d_ff_shared=64 if cfg.moe.n_shared else 0, capacity_factor=8.0))
+    if cfg.ssm is not None:
+        changes["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=16)
     return dataclasses.replace(cfg, **changes)
 
 
-# assigned architectures: the dense and MoE ones, in the order of the
-# reference's ASSIGNED_ARCHS.  mamba2-780m, whisper-base, qwen2-vl-2b and
-# recurrentgemma-9b come with their families' layers (SSM, enc-dec, VLM,
-# RG-LRU) and are not registered yet.
+# assigned architectures: the dense, MoE, SSM and hybrid ones, in the order
+# of the reference's ASSIGNED_ARCHS.  whisper-base and qwen2-vl-2b come with
+# their families' layers (enc-dec, VLM) and are not registered yet.
 from repro_torch.configs import olmo_1b  # noqa: E402,F401
 from repro_torch.configs import qwen2_72b  # noqa: E402,F401
 from repro_torch.configs import glm4_9b  # noqa: E402,F401
 from repro_torch.configs import stablelm_3b  # noqa: E402,F401
+from repro_torch.configs import mamba2_780m  # noqa: E402,F401
 from repro_torch.configs import qwen3_moe_30b_a3b  # noqa: E402,F401
 from repro_torch.configs import deepseek_moe_16b  # noqa: E402,F401
+from repro_torch.configs import recurrentgemma_9b  # noqa: E402,F401
 
-ASSIGNED_ARCHS = ["olmo-1b", "qwen2-72b", "glm4-9b", "stablelm-3b", "qwen3-moe-30b-a3b",
-                  "deepseek-moe-16b"]
+ASSIGNED_ARCHS = ["olmo-1b", "qwen2-72b", "glm4-9b", "stablelm-3b", "mamba2-780m",
+                  "qwen3-moe-30b-a3b", "deepseek-moe-16b", "recurrentgemma-9b"]

@@ -1,14 +1,14 @@
 """The LM config of the port (``repro.configs.base.LMConfig``), field for
-field with torch dtypes, and its ``MoESpec``.
+field with torch dtypes, and its ``MoESpec`` and ``SSMSpec``.
 
 Every field of the reference is kept, so a config copies across unchanged.
-The port builds decoder-only stacks of ``"dense"`` and ``"moe"`` blocks
-(LLaMA, the dense and MoE assigned LMs, and the image transformers'
-blocks), with RMSNorm, LayerNorm or the non-parametric LN, optional
-qk-norm, and an untied or tied head.  ``ssm``, ``encoder`` and ``window``
-describe the other families: a model with ``"mamba2"``, ``"rglru"`` or
-``"local_attn"`` blocks, or that needs an encoder, M-RoPE or embedding
-inputs, raises ``NotImplementedError`` where it is built
+The port builds decoder-only stacks of ``"dense"``, ``"moe"``, ``"mamba2"``,
+``"rglru"`` and ``"local_attn"`` blocks (LLaMA, the dense, MoE, SSM and
+hybrid assigned LMs, and the image transformers' blocks), with RMSNorm,
+LayerNorm or the non-parametric LN, optional qk-norm, and an untied or tied
+head.  ``encoder``, ``mrope_sections`` and ``embed_inputs`` describe the
+enc-dec and VLM families: a model that needs an encoder, M-RoPE or
+embedding inputs raises ``NotImplementedError`` where it is built
 (:func:`check_ported`).
 """
 
@@ -31,6 +31,17 @@ class MoESpec:
     d_ff_shared: int = 0
     first_k_dense: int = 0  # leading dense (non-MoE) layers (DeepSeekMoE: 1)
     capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    """The reference's ``repro.configs.base.SSMSpec``, field for field."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +69,7 @@ class LMConfig:
     # "dense" | "moe" | "mamba2" | "rglru" | "local_attn"
     block_pattern: tuple = ("dense",)
     moe: MoESpec | None = None
-    ssm: Any = None  # SSMSpec
+    ssm: SSMSpec | None = None
     encoder: Any = None  # EncoderSpec (enc-dec, whisper)
     embed_inputs: bool = False  # inputs are embeddings (vlm stub frontend)
     dtype: Any = torch.float32
@@ -82,7 +93,7 @@ class LMConfig:
         return self.encoder is not None
 
 
-PORTED_BLOCKS = ("dense", "moe")
+PORTED_BLOCKS = ("dense", "moe", "mamba2", "rglru", "local_attn")
 
 
 def check_ported(cfg: LMConfig) -> None:
@@ -97,5 +108,6 @@ def check_ported(cfg: LMConfig) -> None:
         missing.append(f"norm {cfg.norm!r}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port builds dense and "
-            "MoE decoder-only stacks, and the other LM families come with their own slice")
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the port builds dense, MoE, "
+            "SSM and hybrid decoder-only stacks, and the other LM families come with their "
+            "own slice")

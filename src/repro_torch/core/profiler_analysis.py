@@ -12,11 +12,14 @@ reductions (the norms' statistics) ``norm``, elementwise kernels
 ``pointwise``, gathers ``embed``, and everything else ``other`` (copies,
 sets, ``torch.cat``), whose share is reported, never hidden.  Scopes are the ``tracer.scope`` names
 (stages, blocks, layers), which open ``record_function`` ranges while a
-profile runs.  One category follows the scope instead of the name: what
+profile runs.  Two categories follow the scope instead of the name: what
 an MoE layer launches under its routing, scatter and gather scope
-(``{name}_dispatch``, ``models.layers.moe``) is ``dispatch``, whatever the
-kernels are (a softmax, a sort, a scatter), as the reference's tracer
-counts MoE dispatch.
+(``{name}_dispatch``, ``models.layers.moe``) is ``dispatch``, and what a
+Mamba-2 mixer or an RG-LRU block launches under its recurrence's scope
+(``{name}_scan``, ``models.layers.ssm`` and ``rglru``: the SSD's chunk
+products and cross-chunk loop, the RG-LRU's gates and doubling scan) is
+``scan``, whatever the kernels are (GEMMs, exponentials, a cumsum), as the
+reference's tracer counts MoE dispatch and the SSM / RG-LRU scans.
 """
 
 from __future__ import annotations
@@ -48,8 +51,11 @@ CATEGORY_PATTERNS = (
     ("embed", ("index_select", "indexSelect", "index_elementwise", "gather", "embedding")),
     ("pointwise", ("elementwise", "vectorized", "unrolled", "pointwise")),
 )
-CATEGORIES = ("attention", "linear", "conv", "norm", "pointwise", "embed", "dispatch", "other")
-DISPATCH_SCOPE = "_dispatch"  # the end of an MoE layer's dispatch scope name
+CATEGORIES = ("attention", "linear", "conv", "norm", "pointwise", "embed", "dispatch", "scan",
+              "other")
+# the ends of the scope names whose work takes the scope's category: an MoE
+# layer's dispatch, a Mamba-2 mixer's or RG-LRU block's recurrence
+SCOPE_CATEGORIES = {"_dispatch": "dispatch", "_scan": "scan"}
 TEMPORAL_ATTENTION = "temporal_attention_kernel"
 _WORK = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -60,6 +66,12 @@ def kernel_category(name: str) -> str:
         if any(s in name for s in subs):
             return cat
     return "other"
+
+
+def _scope_category(scope: str) -> str | None:
+    """The category of the work launched in a scope of this name, if the
+    scope decides it (:data:`SCOPE_CATEGORIES`)."""
+    return next((c for end, c in SCOPE_CATEGORIES.items() if scope.endswith(end)), None)
 
 
 def is_temporal_attention(name: str) -> bool:
@@ -133,12 +145,13 @@ def by_category(prof, passes: int = 1) -> dict:
     """Device ms per pass by tracer category (every category present, 0 if
     none ran), plus ``attention_temporal``: the temporal kernel's part of
     ``attention``.  Work launched inside an MoE dispatch scope is
-    ``dispatch``; the rest takes its category from its name."""
+    ``dispatch``, inside an SSM or RG-LRU scan scope ``scan`` (the innermost
+    such scope decides); the rest takes its category from its name."""
     out = dict.fromkeys(CATEGORIES, 0.0)
     out["attention_temporal"] = 0.0
-    for e, scopes in _launch_scopes(prof, keep=lambda n: n.endswith(DISPATCH_SCOPE)):
+    for e, scopes in _launch_scopes(prof, keep=_scope_category):
         ms = _us(e) / 1e3 / passes
-        out["dispatch" if scopes else kernel_category(e.name)] += ms
+        out[_scope_category(scopes[-1]) if scopes else kernel_category(e.name)] += ms
         if is_temporal_attention(e.name):
             out["attention_temporal"] += ms
     return out

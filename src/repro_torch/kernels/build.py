@@ -1,9 +1,11 @@
 """Build, load and launch-count the port's hand-written CUDA kernels.
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``), one object per source with all compilers started together,
-linked into one shared library with a plain C interface and loaded with
-``ctypes``.  The library lands in ``build/<hash of the sources>/`` beside
+(``sm_90a``), one object per source with all compilers started together
+(``--split-compile=0`` spreads each one's optimization and ``ptxas`` work
+over the host's cores: ``flash_attention.cu``'s 64 template instances are
+the build's long pole), linked into one shared library with a plain C interface and
+loaded with ``ctypes``.  The library lands in ``build/<hash of the sources>/`` beside
 this file (listed in ``.gitignore``), so a checkout builds it on its first
 kernel call and an edited source gets a fresh build.  Nothing here runs at
 import time: the CPU tests import every module on a machine with no
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0")
 
 # The card the kernels are built for (H100 SXM): its streaming
 # multiprocessors, the shared memory one block may use, and the shared memory

@@ -52,19 +52,23 @@ def decode_attention(
     *,
     kv_len,
     scale: float | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Decode-phase attention, as ``repro.kernels.flash_attention.ops``'s:
     fp32 scores, keys at or past ``kv_len`` (an int, or one length a request)
-    masked with ``NEG_INF``, softmax, the output cast back to q's dtype.
+    masked with ``NEG_INF``, and with a ``window`` also the keys below
+    ``kv_len - window``; softmax, the output cast back to q's dtype.
 
     For an int ``kv_len`` (one length for the batch, as every caller here
-    has) only the first ``kv_len`` cache rows are read: a masked key's weight
-    is exactly 0 in fp32 (exp(-1e30 - max)), so the function is unchanged and
-    the cache read is the valid part only (half of Parti's, on average)."""
+    has) only the cache rows ``[max(0, kv_len - window), kv_len)`` are read
+    (``[0, kv_len)`` without a window): a masked key's weight is exactly 0 in
+    fp32 (exp(-1e30 - max)), so the function is unchanged and the cache read
+    is the valid part only (half of Parti's, on average)."""
     B, _, H, D = q.shape
     one_len = isinstance(kv_len, int)
     if one_len:
-        k_cache, v_cache = k_cache[:, :kv_len], v_cache[:, :kv_len]
+        lo = 0 if window is None else max(0, kv_len - window)
+        k_cache, v_cache = k_cache[:, lo:kv_len], v_cache[:, lo:kv_len]
     S, KVH = k_cache.shape[1], k_cache.shape[2]
     group = H // KVH
     scale = scale if scale is not None else D ** -0.5
@@ -75,7 +79,10 @@ def decode_attention(
     kf, vf = k_cache.float(), v_cache.float()
     s = torch.stack([torch.matmul(qf[b], kf[b].permute(1, 2, 0)) for b in range(B)]) * scale
     if not one_len:  # every row read is valid otherwise
-        ok = torch.arange(S, device=q.device) < kv_len.to(q.device).reshape(-1, 1, 1, 1)
+        pos, n = torch.arange(S, device=q.device), kv_len.to(q.device).reshape(-1, 1, 1, 1)
+        ok = pos < n
+        if window is not None:
+            ok = ok & (pos >= n - window)
         s = torch.where(ok, s, _ref.NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.stack([torch.matmul(p[b], vf[b].permute(1, 0, 2)) for b in range(B)])

@@ -16,9 +16,14 @@ reference's ``dynamic_update_slice`` returns a new cache; copying Parti's
 qk-norm (Qwen3) is an RMSNorm over ``head_dim`` on q and k (leaves
 ``q_norm``, ``k_norm``) after the head split and before RoPE, as the
 reference's ``_qk_norm``; a cross-attention decode normalizes q only.
-Local windows (with the ring-buffer cache) and M-RoPE come with the LM
-families that use them (``configs.base.check_ported`` refuses those
-configs).
+A local window (RecurrentGemma's ``local_attn`` blocks) masks keys more
+than ``window - 1`` positions before the query in the prefill (the flash
+kernel's window mask); in decode, a cache of at most ``window`` rows is a
+ring buffer, as the reference's: row ``cur_len % cap`` takes the new key,
+``min(cur_len + 1, cap)`` rows are attended with no further mask (RoPE has
+placed every key, and softmax does not depend on the rows' order), and a
+longer cache is read through the window mask instead.  M-RoPE comes with
+the VLM family (``configs.base.check_ported`` refuses it).
 
 Each attention call records the reference's event (``_attention_event``),
 computed from the caller's ``impl`` string (``tiers.event_impl``): the
@@ -47,14 +52,17 @@ class AttentionCache(NamedTuple):
     # the current length is the caller's (one for the whole batch)
 
 
-def _attention_event(name, impl, B, Sq, Skv, H, D, dtype, causal):
-    """The reference's attention event (no local window: the port has none)."""
+def _attention_event(name, impl, B, Sq, Skv, H, D, dtype, causal, window=None):
+    """The reference's attention event; a local window narrower than the
+    keys keeps ``window / Skv`` of the pairs."""
     if not tracer.active():
         return
     elem = tracer.dtype_bytes(dtype)
     qkv_bytes = (B * Sq * H * D + 2 * B * Skv * H * D) * elem
     out_bytes = B * Sq * H * D * elem
     frac = 0.5 if causal else 1.0
+    if window is not None and Skv > window:
+        frac = min(frac, window / Skv)
     flops = 4.0 * B * H * Sq * Skv * D * frac
     if impl == "naive":
         # the (Sq, Skv) similarity matrix makes two fp32 HBM round trips
@@ -73,10 +81,11 @@ class Attention(Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *, n_kv_heads: int | None = None,
                  qkv_bias: bool = False, out_bias: bool = False, qk_norm: bool = False,
                  rope: bool = False, rope_base: float = 10000.0, rope_pct: float = 1.0,
-                 causal: bool = False, cross: bool = False, dtype=torch.float32,
-                 name: str = "attn"):
+                 causal: bool = False, window: int | None = None, cross: bool = False,
+                 dtype=torch.float32, name: str = "attn"):
         super().__init__()
         self.n_heads, self.head_dim, self.cross, self.name = n_heads, head_dim, cross, name
+        self.window = window
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         self.rope, self.rope_base, self.rope_pct = rope, rope_base, rope_pct
         self.causal, self.dtype = causal, dtype
@@ -116,9 +125,9 @@ class Attention(Module):
         if not self.cross:
             q, k = self._rope(q, positions), self._rope(k, positions)
         causal = self.causal and not self.cross
-        out = attn_ops.attention(q, k, v, causal=causal, impl=impl)
+        out = attn_ops.attention(q, k, v, causal=causal, window=self.window, impl=impl)
         _attention_event(self.name, event_impl(impl), B, S, k.shape[1], self.n_heads,
-                         self.head_dim, x.dtype, causal)
+                         self.head_dim, x.dtype, causal, self.window)
         y = self.wo(out.reshape(B, S, self.n_heads * self.head_dim))
         return (y, AttentionCache(k, v)) if return_kv else y
 
@@ -135,8 +144,10 @@ class Attention(Module):
         """x (B, 1, d_model), ``cur_len`` tokens already in ``cache`` ->
         (y, cache).  Self-attention rotates q and the new k at ``cur_len``,
         writes k and v at row ``cur_len`` (cast to the cache's dtype) and
-        attends to ``cur_len + 1`` rows; cross-attention attends to all of
-        the precomputed ``cross_cache`` and leaves ``cache`` as it is."""
+        attends to ``cur_len + 1`` rows, or, in a window's ring buffer, at
+        row ``cur_len % cap`` and to ``min(cur_len + 1, cap)`` rows;
+        cross-attention attends to all of the precomputed ``cross_cache``
+        and leaves ``cache`` as it is."""
         B = x.shape[0]
         q = self._heads(self.wq(x), self.n_heads)
         if self.cross:
@@ -154,9 +165,14 @@ class Attention(Module):
             q, k_new = self.q_norm(q), self.k_norm(k_new)
         pos = torch.full((B, 1), cur_len, dtype=torch.int32, device=x.device)
         q, k_new = self._rope(q, pos), self._rope(k_new, pos)
-        cache.k[:, cur_len] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[:, cur_len] = v_new[:, 0].to(cache.v.dtype)
-        out = attn_ops.decode_attention(q, cache.k, cache.v, kv_len=cur_len + 1)
-        _attention_event(self.name, "decode", B, 1, cache.k.shape[1], self.n_heads,
-                         self.head_dim, x.dtype, True)
+        cap = cache.k.shape[1]
+        if self.window is not None and cap <= self.window:  # the ring buffer
+            row, kv_len, window = cur_len % cap, min(cur_len + 1, cap), None
+        else:
+            row, kv_len, window = cur_len, cur_len + 1, self.window
+        cache.k[:, row] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, row] = v_new[:, 0].to(cache.v.dtype)
+        out = attn_ops.decode_attention(q, cache.k, cache.v, kv_len=kv_len, window=window)
+        _attention_event(self.name, "decode", B, 1, cap, self.n_heads, self.head_dim, x.dtype,
+                         True, self.window)
         return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache

@@ -5,6 +5,10 @@ fused epilogues (bias / time-embedding add / SiLU / residual add), the fused
 GroupNorm(+SiLU) producer and next-GroupNorm stats emission.  Layout NHWC,
 kernel HWIO.  ``TemporalConv1D`` convolves over the frame axis of
 (B, F, H, W, C) video tensors through ``kernels.conv2d.ops.temporal_conv1d``.
+``CausalDepthwiseConv1D`` is the short causal conv of the SSM and RG-LRU
+blocks over (B, S, C): ``width`` shifted multiply-adds, as the reference's
+``lax.conv_general_dilated`` with ``feature_group_count=C`` (no Pallas
+kernel there, none here).
 
 Every conv records the reference's event (``_record_conv``): the fused
 tiers (the reference's ``pallas``/``interpret``, the port's ``kernel``)
@@ -23,22 +27,25 @@ from repro_torch.kernels.tiers import conv_event_impl
 from repro_torch.nn import Module, scaled_init, zeros_init
 
 
-def _record_conv(name, x, y, w_shape, *, impl, gn=False, temb=False, silu=False,
-                 residual=False, emit_stats=False, extra_bytes=0.0, bw_efficiency=None):
+def _record_conv(name, x, y, w_shape, *, impl, groups=1, has_bias=True, gn=False, temb=False,
+                 silu=False, residual=False, emit_stats=False, extra_bytes=0.0,
+                 bw_efficiency=None):
     """Conv operator event with the fused-vs-unfused HBM traffic; ``impl``
-    is the reference's conv tier name (``tiers.conv_event_impl``).  Every
-    conv of the port has a bias."""
+    is the reference's conv tier name (``tiers.conv_event_impl``); a
+    grouped conv does ``1 / groups`` of the dense conv's FLOPs."""
     if not tracer.active():
         return
     B = x.shape[0]
     out_spatial = tracer.numel(y.shape[1:-1])
     cout = w_shape[-1]
-    flops = 2.0 * B * out_spatial * cout * tracer.numel(w_shape[:-1])
+    flops = 2.0 * B * out_spatial * cout * tracer.numel(w_shape[:-1]) / max(groups, 1)
     elem = tracer.dtype_bytes(x.dtype)
     n_x = tracer.numel(x.shape) * elem
     n_y = tracer.numel(y.shape) * elem
     fused = impl in ("pallas", "interpret")
-    traffic = n_x + n_y + tracer.numel(w_shape) * elem + extra_bytes + cout * elem
+    traffic = n_x + n_y + tracer.numel(w_shape) * elem + extra_bytes
+    if has_bias:
+        traffic += cout * elem
     if gn:
         traffic += 2 * B * x.shape[-1] * 4  # per-(batch, channel) affine
     if temb:
@@ -117,3 +124,36 @@ class TemporalConv1D(Module):
                      * tracer.dtype_bytes(x.dtype),
                      bw_efficiency=1.0 if fused else 0.5)
         return y
+
+
+class CausalDepthwiseConv1D(Module):
+    """Short causal depthwise conv over the sequence axis (Mamba, Griffin):
+    kernel (W, C) and bias (C,); output row s sums input rows s-W+1..s
+    (zeros before the start), each channel on its own.  ``step`` runs one
+    token against the (B, W-1, C) window of the previous raw inputs."""
+
+    def __init__(self, channels: int, width: int = 4, dtype=torch.float32,
+                 name: str = "conv1d"):
+        super().__init__()
+        self.channels, self.width, self.name = channels, width, name
+        self.param("kernel", (width, channels), scaled_init((0,)), dtype)
+        self.param("bias", (channels,), zeros_init, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, C) -> (B, S, C)."""
+        w = self.kernel.to(x.dtype)
+        S, W = x.shape[1], self.width
+        xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+        y = xp[:, :S] * w[0]
+        for j in range(1, W):
+            y = y + xp[:, j:j + S] * w[j]
+        y = y + self.bias.to(x.dtype)
+        _record_conv(self.name, x, y, (W, 1, 1, self.channels), impl="xla",
+                     groups=self.channels)
+        return y
+
+    def step(self, x_new: torch.Tensor, conv_state: torch.Tensor):
+        """x_new (B, C), conv_state (B, W-1, C) -> (y (B, C), the next window)."""
+        window = torch.cat([conv_state, x_new[:, None, :]], dim=1)  # (B, W, C)
+        y = (window * self.kernel.to(x_new.dtype)).sum(dim=1) + self.bias.to(x_new.dtype)
+        return y, window[:, 1:]

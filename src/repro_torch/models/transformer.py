@@ -1,27 +1,40 @@
-"""Transformer blocks and the decoder-only LM (``repro.models.transformer``),
-the dense and MoE branches: the image transformers' blocks (Muse, Parti),
-the LLM baseline (LLaMA2-7B) and the assigned dense and MoE LMs.
+"""Transformer blocks and the decoder-only LM (``repro.models.transformer``):
+the image transformers' blocks (Muse, Parti), the LLM baseline (LLaMA2-7B)
+and the assigned dense, MoE, SSM and hybrid LMs.
 
-``Block`` is built from an ``LMConfig`` as the reference's: RMSNorm or
-LayerNorm, GQA self-attention with RoPE (causal or not) and optional
-qk-norm, optional cross-attention to a context, and the plain or gated MLP,
-or in a ``"moe"`` block the MoE FFN (key ``moe``); ``decode`` runs one token
-against the block's KV cache.  A ``"moe"`` block's forward (the prefill)
-drops assignments past capacity, as the reference's; its decode runs with
-``no_drop``; the auxiliary loss is dropped in both, as there.
+``Block`` is built from an ``LMConfig`` as the reference's, one residual
+layer of a block type:
+
+  - ``"dense"`` / ``"moe"`` / ``"local_attn"``: RMSNorm or LayerNorm, GQA
+    self-attention with RoPE (causal or not, a local window in
+    ``"local_attn"``) and optional qk-norm, optional cross-attention to a
+    context, then the plain or gated MLP, or in a ``"moe"`` block the MoE
+    FFN (key ``moe``).  A ``"moe"`` block's forward (the prefill) drops
+    assignments past capacity, as the reference's; its decode runs with
+    ``no_drop``; the auxiliary loss is dropped in both, as there.
+  - ``"mamba2"``: the Mamba-2 mixer (key ``mixer``), no MLP.
+  - ``"rglru"``: the Griffin recurrent block (key ``rglru``), then the MLP.
+
+``decode`` runs one token against the block's state: a KV cache, written in
+place, or a recurrent state (``Mamba2State``, ``RGLRUState``), returned new.
 
 ``TransformerLM`` is the paper's Table III Prefill / Decode pair:
-``prefill`` processes a prompt through the causal flash-attention kernel
-and leaves the caches padded to decode capacity,
-``decode_step`` runs one token against them.
+``prefill`` processes a prompt (through the causal flash-attention kernel,
+windowed in ``"local_attn"`` blocks) and leaves each group's states:
+``{"attn": AttentionCache}`` padded to decode capacity, a local window's as
+a ring of ``min(window, max_len)`` rows rolled by ``S % cap`` (the
+reference's ``_to_capacity``), ``{"ssm": Mamba2State}`` or ``{"rnn":
+RGLRUState}``, each leaf stacked (n, B, ...); ``decode_step`` runs one token
+against them, writing each layer's slice in place.
 
 The LM keeps the reference's scanned parameter layout: each run of
 identical blocks is one group ``blocks.g{i}_{type}`` whose leaves carry a
 leading layer axis (``nn.stack_params``), so a JAX tree bridges unchanged;
 the Python loop over layers reads each layer's slice as a view
 (``nn.layer_views``): deepseek-moe's stack is ``g0_dense`` (its first
-layer) and ``g1_moe``.  SSM, RG-LRU, local-window, enc-dec and VLM blocks
-come with their own slices (``configs.base.check_ported``).
+layer) and ``g1_moe``, recurrentgemma's alternates ``g0_rglru``,
+``g1_local_attn``, ``g2_rglru``, ...  Enc-dec and VLM blocks come with
+their own slices (``configs.base.check_ported``).
 
 Tracer scopes are the reference's unrolled ones: ``layer_g{i}_{j}_{type}``
 around each layer of the LM's prefill and decode step.
@@ -38,7 +51,12 @@ from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.mlp import MLP
 from repro_torch.models.layers.moe import MoE
 from repro_torch.models.layers.norms import LayerNorm, RMSNorm
+from repro_torch.models.layers.rglru import RGLRUBlock, RGLRUState
+from repro_torch.models.layers.ssm import Mamba2Mixer, Mamba2State
 from repro_torch.nn import Module, layer_views, stack_params
+
+# each recurrent block type: its state's key and type
+RECURRENT = {"mamba2": ("ssm", Mamba2State), "rglru": ("rnn", RGLRUState)}
 
 
 def _norm(c: LMConfig, name: str) -> Module:
@@ -55,11 +73,12 @@ def _norm(c: LMConfig, name: str) -> Module:
 
 
 class Block(Module):
-    """norm1 -> self-attention -> (norm_cross -> cross-attention) -> norm2 ->
-    MLP (or MoE), each with its residual, under the reference's keys
-    ``norm1``, ``attn``, ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp``
-    (``moe``).  RoPE is on (``rope=not cfg.is_encdec``), and rotates only
-    where positions are given."""
+    """One residual layer under the reference's keys: ``norm1``, ``attn``,
+    ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp`` (``moe``) in the
+    attention blocks; ``norm1``, ``mixer`` in ``"mamba2"``; ``norm1``,
+    ``rglru``, ``norm2``, ``mlp`` in ``"rglru"``.  RoPE is on
+    (``rope=not cfg.is_encdec``), and rotates only where positions are
+    given."""
 
     def __init__(self, cfg: LMConfig, block_type: str = "dense", causal: bool = True,
                  with_cross: bool = False):
@@ -70,18 +89,27 @@ class Block(Module):
         c = cfg
         self.block_type, self.with_cross = block_type, with_cross
         self.norm1 = _norm(c, "norm1")
-        self.attn = Attention(
-            c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
-            qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope=not c.is_encdec,
-            rope_base=c.rope_base, rope_pct=c.rope_pct, causal=causal, dtype=c.dtype)
-        self.norm2 = _norm(c, "norm2")
+        if block_type == "mamba2":
+            s = c.ssm
+            self.mixer = Mamba2Mixer(c.d_model, s.d_state, s.d_conv, s.expand, s.head_dim,
+                                     s.chunk, dtype=c.dtype)
+        elif block_type == "rglru":
+            self.rglru = RGLRUBlock(c.d_model, c.d_model, dtype=c.dtype)
+        else:
+            self.attn = Attention(
+                c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
+                qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope=not c.is_encdec,
+                rope_base=c.rope_base, rope_pct=c.rope_pct, causal=causal,
+                window=c.window if block_type == "local_attn" else None, dtype=c.dtype)
+        if block_type != "mamba2":
+            self.norm2 = _norm(c, "norm2")
         if block_type == "moe":
             m = c.moe
             self.moe = MoE(c.d_model, m.d_ff_expert, m.n_experts, m.top_k,
                            n_shared=m.n_shared, d_ff_shared=m.d_ff_shared,
                            capacity_factor=m.capacity_factor, activation=c.mlp_activation,
                            dtype=c.dtype)
-        else:
+        elif block_type != "mamba2":
             self.mlp = MLP(c.d_model, c.d_ff, dtype=c.dtype, activation=c.mlp_activation,
                            gated=c.mlp_gated)
         if with_cross:
@@ -93,8 +121,16 @@ class Block(Module):
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor | None = None,
                 context: torch.Tensor | None = None, impl: str = "auto",
                 return_state: bool = False):
-        """x (B, S, d) -> x, or (x, {"attn": the layer's k, v}) with
-        ``return_state``."""
+        """x (B, S, d) -> x, or (x, the layer's state) with ``return_state``:
+        ``{"attn": its k, v}``, ``{"ssm": Mamba2State}`` or ``{"rnn":
+        RGLRUState}``."""
+        t = self.block_type
+        if t in RECURRENT:
+            y, st = self.recurrent()(self.norm1(x))
+            x = x + y
+            if t == "rglru":
+                x = x + self.mlp(self.norm2(x))
+            return (x, {RECURRENT[t][0]: st}) if return_state else x
         h = self.norm1(x)
         if return_state:
             a, kv = self.attn(h, positions=positions, impl=impl, return_kv=True)
@@ -106,6 +142,10 @@ class Block(Module):
         x = x + self._ffn(self.norm2(x), no_drop=False)
         return (x, {"attn": kv}) if return_state else x
 
+    def recurrent(self) -> Module:
+        """The recurrent layer of a ``"mamba2"`` or ``"rglru"`` block."""
+        return self.mixer if self.block_type == "mamba2" else self.rglru
+
     def _ffn(self, h: torch.Tensor, no_drop: bool) -> torch.Tensor:
         """The MLP, or the MoE without its auxiliary loss."""
         if self.block_type == "moe":
@@ -114,8 +154,17 @@ class Block(Module):
 
     def decode(self, x: torch.Tensor, state: dict, cur_len: int, *,
                cross_cache: AttentionCache | None = None):
-        """x (B, 1, d) against ``state["attn"]`` -> (x, state); the cache is
-        written in place."""
+        """x (B, 1, d) against ``state`` -> (x, state): the KV cache
+        ``state["attn"]`` is written in place; a recurrent state comes back
+        new."""
+        t = self.block_type
+        if t in RECURRENT:
+            key = RECURRENT[t][0]
+            y, st = self.recurrent().step(self.norm1(x), state[key])
+            x = x + y
+            if t == "rglru":
+                x = x + self.mlp(self.norm2(x))
+            return x, {key: st}
         a, kv = self.attn.decode(self.norm1(x), state["attn"], cur_len)
         x = x + a
         if self.with_cross:
@@ -137,6 +186,30 @@ def _zero_cache(group: list, batch: int, cap: int) -> AttentionCache:
     shape = (len(group), batch, cap, a.n_kv_heads, a.head_dim)
     return AttentionCache(*(torch.zeros(shape, dtype=a.dtype, device=a.wq.kernel.device)
                             for _ in range(2)))
+
+
+def _zero_state(group: list, batch: int, max_len: int) -> dict:
+    """The zero decode state of a group's n layers, each leaf (n, batch,
+    ...): a KV cache of ``max_len`` rows (``min(window, max_len)`` in a
+    local window's ring), or zero recurrent states."""
+    t = group[0].block_type
+    if t in RECURRENT:
+        key, cls = RECURRENT[t]
+        one = group[0].recurrent().init_state(batch)
+        return {key: cls(*(torch.stack([a] * len(group)) for a in one))}
+    window = group[0].attn.window
+    return {"attn": _zero_cache(group, batch, max_len if window is None
+                                else min(window, max_len))}
+
+
+def _ring(t: torch.Tensor, S: int, cap: int) -> torch.Tensor:
+    """A prefill's rows (B, S, ...) laid out as a window's ring of ``cap``
+    rows (the reference's ``_to_capacity``): position p in row p % cap, so
+    the last ``cap`` rows rolled by ``S % cap``; a shorter prompt fills the
+    first S rows."""
+    if S <= cap:
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, cap - S))
+    return torch.roll(t[:, S - cap:], S % cap, dims=1)
 
 
 class TransformerLM(Module):
@@ -189,43 +262,61 @@ class TransformerLM(Module):
     def prefill(self, tokens: torch.Tensor, *, impl: str = "auto",
                 max_len: int | None = None):
         """Process a prompt (B, S) -> (last-position logits (B, 1, vocab),
-        caches): each group's keys and values stacked (n, B, cap, KVH, D),
-        padded with zeros to ``cap = max_len`` (default S), or cut to it, as
-        the reference's ``_to_capacity``."""
+        caches): each group's states, leaves stacked (n, B, ...).  Keys and
+        values are padded with zeros to ``cap = max_len`` (default S), or
+        cut to it, or in a local window laid out as its ring of ``min(window,
+        max_len)`` rows, as the reference's ``_to_capacity``."""
         B, S = tokens.shape
-        cap = S if max_len is None else max_len
         x = self.embed(tokens)
         positions = _positions(tokens)
         caches = []
         for i, group in enumerate(self.layers()):
-            kv = _zero_cache(group, B, cap)
+            t = group[0].block_type
+            key = RECURRENT[t][0] if t in RECURRENT else "attn"
+            window = None if t in RECURRENT else group[0].attn.window
+            ring = key == "attn" and max_len is not None and window is not None
+            cap = S if max_len is None else max_len
+            kv = _zero_cache(group, B, cap) if key == "attn" and not ring else None
+            states = []
             for j, layer in enumerate(group):
                 with tracer.scope(self._scope(i, j)):
                     x, st = layer(x, positions=positions, impl=impl, return_state=True)
-                kv.k[j, :, :min(S, cap)] = st["attn"].k[:, :cap]
-                kv.v[j, :, :min(S, cap)] = st["attn"].v[:, :cap]
-            caches.append({"attn": kv})
+                st = st[key]
+                if kv is not None:  # written into the padded cache at once
+                    kv.k[j, :, :min(S, cap)] = st.k[:, :cap]
+                    kv.v[j, :, :min(S, cap)] = st.v[:, :cap]
+                elif ring:
+                    states.append(AttentionCache(*(_ring(a, S, min(window, max_len))
+                                                   for a in st)))
+                else:
+                    states.append(st)
+            caches.append({key: kv if kv is not None else type(states[0])(
+                *(torch.stack(a) for a in zip(*states)))})
         # the norm over every position, as the reference's (its event counts
         # them all); the last position's logits
         logits = self._logits(self.final_norm(x)[:, -1:])
         return logits, caches
 
     def init_cache(self, batch: int, max_len: int) -> list:
-        """Zero caches of ``max_len`` rows, one ``{"attn": (k, v)}`` a group
-        of shape (n, batch, max_len, KVH, D), beside the weights."""
-        return [{"attn": _zero_cache(group, batch, max_len)} for group in self.layers()]
+        """Zero decode states for ``max_len`` positions, one a group, each
+        leaf (n, batch, ...), beside the weights (``_zero_state``)."""
+        return [_zero_state(group, batch, max_len) for group in self.layers()]
 
     def decode_step(self, token: torch.Tensor, caches: list, cur_len: int, *,
                     impl: str = "auto"):
         """token (B, 1) at position ``cur_len`` -> (logits (B, 1, vocab),
-        caches), the caches written in place."""
+        caches), each layer's slice of the caches written in place."""
         del impl  # decode attention is plain PyTorch on every tier
         x = self.embed(token)
         for i, (group, cache) in enumerate(zip(self.layers(), caches)):
+            (key, stacked), = cache.items()
             for j, layer in enumerate(group):
                 with tracer.scope(self._scope(i, j)):
-                    x, _ = layer.decode(x, {"attn": AttentionCache(cache["attn"].k[j],
-                                                                   cache["attn"].v[j])}, cur_len)
+                    x, st = layer.decode(x, {key: type(stacked)(*(a[j] for a in stacked))},
+                                         cur_len)
+                if key != "attn":  # a recurrent state: its new value into the slice
+                    for a, new in zip(stacked, st[key]):
+                        a[j].copy_(new)
         return self._logits(self.final_norm(x)), caches
 
     def _scope(self, i: int, j: int) -> str:

@@ -422,3 +422,39 @@ def test_work_launched_in_an_moe_dispatch_scope_is_dispatch():
                           host=[("cudaLaunchKernel", 1.0, 2.0, False, 1)])
     cats = profiler_analysis.by_category(plain)
     assert cats["dispatch"] == 0.0 and cats["attention"] == pytest.approx(0.1)
+
+
+def test_work_launched_in_a_scan_scope_is_scan():
+    """What a Mamba-2 mixer launches under its ``mamba2_scan`` range (a
+    GEMM, an exp, a cumsum) and an RG-LRU block under ``rglru_scan`` counts
+    as ``scan``, whatever the names; the projections outside stay
+    ``linear``; a ``_dispatch`` range inside a ``_scan`` one would give the
+    innermost its category; a pass with no such range keeps ``scan`` at 0."""
+    prof = _fake_profile(
+        [("sm90_xmma_gemm_f32f32", 0.0, 300.0, False, "kernel"),
+         ("sm90_xmma_gemm_f32f32", 300.0, 500.0, False, "kernel"),
+         ("void vectorized_elementwise_kernel<exp>", 500.0, 600.0, False, "kernel"),
+         ("void scan_innermost_dim<float>", 600.0, 650.0, False, "kernel"),
+         ("void vectorized_elementwise_kernel<add>", 650.0, 700.0, False, "kernel"),
+         ("sm90_xmma_gemm_f32f32", 700.0, 900.0, False, "kernel"),
+         ("void index_put_kernel<float>", 900.0, 1000.0, False, "kernel")],
+        host=[("layer_g0_0_mamba2", 0.0, 80.0, True, 0), ("mamba2_scan", 10.0, 40.0, True, 0),
+              ("layer_g1_0_rglru", 80.0, 120.0, True, 0), ("rglru_scan", 90.0, 110.0, True, 0),
+              ("moe_dispatch", 100.0, 105.0, True, 0),
+              ("cudaLaunchKernel", 5.0, 6.0, False, 1),
+              ("cudaLaunchKernel", 11.0, 12.0, False, 2),
+              ("cudaLaunchKernel", 20.0, 21.0, False, 3),
+              ("cudaLaunchKernel", 30.0, 31.0, False, 4),
+              ("cudaLaunchKernel", 95.0, 96.0, False, 5),
+              ("cudaLaunchKernel", 115.0, 116.0, False, 6),
+              ("cudaLaunchKernel", 101.0, 102.0, False, 7)])
+    cats = profiler_analysis.by_category(prof)
+    assert "scan" in profiler_analysis.CATEGORIES
+    assert cats["scan"] == pytest.approx(0.4) and cats["linear"] == pytest.approx(0.5)
+    assert cats["dispatch"] == pytest.approx(0.1) and cats["pointwise"] == 0.0
+    assert profiler_analysis.shares(cats)["scan"] == pytest.approx(0.4)
+    assert profiler_analysis.by_scope(prof, depth=1) == pytest.approx(
+        {"layer_g0_0_mamba2": 0.65, "layer_g1_0_rglru": 0.35})
+    plain = _fake_profile([("void scan_innermost_dim<float>", 0.0, 100.0, False, "kernel")],
+                          host=[("cudaLaunchKernel", 1.0, 2.0, False, 1)])
+    assert profiler_analysis.by_category(plain)["scan"] == 0.0

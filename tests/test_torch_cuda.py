@@ -190,6 +190,11 @@ DENSE_LM_ATTN_CASES = [(2, 2048, 2048, 16, 16, 128, 0), (2, 2048, 2048, 32, 32, 
 # kv_offset): qwen3-moe-30b-a3b's GQA 32:4 (a group of 8) after qk-norm;
 # deepseek-moe-16b's MHA 16 x 128 is olmo-1b's shape above
 MOE_LM_ATTN_CASES = [(2, 2048, 2048, 32, 4, 128, 0)]
+# recurrentgemma-9b's local-attention prefill at full width (B, Sq, Skv, H,
+# KVH, D, window): MQA 16:1 at D = 256, causal, a window of 2048 over the
+# 3072-token prompt of its chip run (the last 1024 rows lose their early
+# keys, and whole key tiles are skipped)
+LOCAL_LM_ATTN_CASES = [(2, 3072, 3072, 16, 1, 256, 2048)]
 # One MoE layer at full width (d, E, f, k, n_shared, d_ff_shared) over 256
 # tokens at capacity 1.25: deepseek-moe-16b's and qwen3-moe-30b-a3b's
 MOE_CARD_WIDTHS = {"deepseek-moe-16b": (2048, 64, 1408, 6, 2, 2816),
@@ -564,6 +569,94 @@ def test_attention_cuda_moe_lm_prefills_match_plain(h100, case, dtype):
     assert build.launches["flash_attention"] == n + 1
     gold = t_fa_ref.attention_ref(q, k, v, **kw)
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", LOCAL_LM_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_local_window_prefill_matches_plain(h100, case, dtype):
+    """The D = 256 instance with a window that masks (recurrentgemma-9b's
+    prefill): the kernel against its plain version, one launch."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=53))
+    kw = dict(scale=case[5] ** -0.5, causal=True, window=case[6])
+    n = build.launches["flash_attention"]
+    out = kernel.flash_attention(q, k, v, **kw)
+    assert build.launches["flash_attention"] == n + 1
+    gold = t_fa_ref.attention_ref(q, k, v, **kw)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
+def _seeded(layer, seed):
+    from repro_torch.nn import init_params, materialize
+
+    return materialize(layer, init_params(layer, seed), "cpu")
+
+
+def _close_scaled_f32(a, b, tol=F32):
+    """Within ``tol`` of ``b``'s scale: a chain of fp32 products and sums."""
+    b = b.float()
+    np.testing.assert_allclose(_np(a), _np(b), rtol=tol["rtol"],
+                               atol=tol["atol"] * max(1.0, b.abs().max().item()))
+
+
+# The Mamba-2 mixer's output through its gated RMSNorm: its own fp32
+# rounding, the CPU's fp32 against fp64 (seed 59 below), reaches 9.8e-5 at
+# max |out| 5.0 (relative L2 4.2e-6), about the kernel tolerance at that
+# scale, so the card and the CPU, each that far from exact, are held to
+# 5x it; the states stay at the kernel tolerance
+MIXER_OUT = dict(rtol=F32["rtol"], atol=5 * F32["atol"])
+
+
+@pytest.mark.gpu
+def test_mamba2_mixer_at_full_width_on_the_card_matches_the_cpu(h100):
+    """One mamba2-780m mixer (d 1536, 48 heads of 64, state 128, chunk 256)
+    over 300 tokens (a whole chunk and a padded one) from a nonzero state,
+    then one decode step: the card against the CPU (``MIXER_OUT`` for the
+    outputs, relative L2 within 2e-5)."""
+    from repro_torch.models.layers.ssm import Mamba2Mixer, Mamba2State
+
+    layer = _seeded(Mamba2Mixer(1536), 59)
+    g = torch.Generator().manual_seed(60)
+    x = torch.randn((2, 300, 1536), generator=g)
+    st0 = Mamba2State(0.1 * torch.randn((2, 48, 64, 128), generator=g),
+                      torch.zeros((2, 3, layer.conv_dim)))
+    x1 = torch.randn((2, 1, 1536), generator=g)
+    with torch.inference_mode():
+        gold, gst = layer(x, initial_state=st0)
+        gstep, gst1 = layer.step(x1, gst)
+        card = layer.to(h100)
+        out, st = card(x.to(h100), initial_state=Mamba2State(*(a.to(h100) for a in st0)))
+        step, st1 = card.step(x1.to(h100), st)
+    for a, b in ((out, gold), (step, gstep)):
+        _close_scaled_f32(a.cpu(), b, MIXER_OUT)
+        assert ((a.cpu() - b).norm() / b.norm()).item() < 2e-5
+    for a, b in ((st.ssm, gst.ssm), (st.conv, gst.conv), (st1.ssm, gst1.ssm)):
+        _close_scaled_f32(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_rglru_block_at_full_width_on_the_card_matches_the_cpu(h100):
+    """One recurrentgemma-9b RG-LRU block (d 4096) over 200 tokens from a
+    nonzero ``h0`` (8 doubling steps), then one decode step: the card
+    against the CPU."""
+    from repro_torch.models.layers.rglru import RGLRUBlock, RGLRUState
+
+    layer = _seeded(RGLRUBlock(4096, 4096), 61)
+    g = torch.Generator().manual_seed(62)
+    x = torch.randn((2, 200, 4096), generator=g)
+    st0 = RGLRUState(torch.randn((2, 4096), generator=g), torch.zeros((2, 3, 4096)))
+    x1 = torch.randn((2, 1, 4096), generator=g)
+    with torch.inference_mode():
+        gold, gst = layer(x, initial_state=st0)
+        gstep, gst1 = layer.step(x1, gst)
+        card = layer.to(h100)
+        out, st = card(x.to(h100), initial_state=RGLRUState(*(a.to(h100) for a in st0)))
+        step, st1 = card.step(x1.to(h100), st)
+    for a, b in ((out, gold), (st.hidden, gst.hidden), (st.conv, gst.conv), (step, gstep),
+                 (st1.hidden, gst1.hidden)):
+        _close_scaled_f32(a.cpu(), b)
 
 
 def _moe_layer(arch, seed=47):

@@ -50,13 +50,16 @@ def test_checked_files_include_the_ttv_slice():
                 "core/tracer.py", "core/characterize.py", "core/perf_model.py",
                 "core/amdahl.py", "core/prefill_decode.py", "core/seq_profile.py",
                 "core/analytical.py", "core/profiler_analysis.py", "models/layers/moe.py",
-                "configs/deepseek_moe_16b.py", "configs/qwen3_moe_30b_a3b.py"):
+                "configs/deepseek_moe_16b.py", "configs/qwen3_moe_30b_a3b.py",
+                "models/layers/ssm.py", "models/layers/rglru.py", "configs/mamba2_780m.py",
+                "configs/recurrentgemma_9b.py"):
         assert port / rel in PORT_FILES
 
 
 @pytest.mark.parametrize("name,stage", [
     ("muse", "parallel_decode"), ("phenaki", "parallel_decode"), ("llama2-7b", "decode"),
-    ("parti", "ar_decode"), ("deepseek-moe-16b", "decode")])
+    ("parti", "ar_decode"), ("deepseek-moe-16b", "decode"), ("mamba2-780m", "decode"),
+    ("recurrentgemma-9b", "decode")])
 def test_workload_builds_without_jax(name, stage):
     """A process that never imported ``jax`` or ``repro`` builds the
     full-size workload (on ``meta``: nothing is allocated)."""

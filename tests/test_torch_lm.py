@@ -344,8 +344,10 @@ def test_llama_config_matches_jax():
 
 
 def test_other_lm_families_wait_for_their_slice():
-    for change in (dict(block_pattern=("mamba2",)),
-                   dict(block_pattern=("local_attn",), window=8),
+    """Enc-dec (whisper-base), M-RoPE and embedding inputs (qwen2-vl-2b) are
+    refused until their slice ports them."""
+    for change in (dict(encoder=j_get_config("whisper-base").encoder),
+                   dict(embed_inputs=True),
                    dict(mrope_sections=(2, 3, 3))):
         cfg = dataclasses.replace(t_suite.LLAMA2_7B, **change)
         with pytest.raises(NotImplementedError, match="not ported"):
