@@ -2,11 +2,11 @@
 
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py olmo-1b fleet`` runs just the named paths and
-phase 8b, ``python3 chip_smoke.py mamba2-780m recurrentgemma-9b`` just
-the two sub-quadratic LMs, for a shorter call while a path is being brought
+phase 8b, ``python3 chip_smoke.py whisper-base qwen2-vl-2b`` just the
+enc-dec and VLM paths, for a shorter call while a path is being brought
 up.)
 
-Fifteen paths, each at full published width with random weights from a
+Seventeen paths, each at full published width with random weights from a
 seed, 2 requests each:
 
   - Stable Diffusion text-to-image (512x512, 50 DDIM steps; three kernels);
@@ -59,7 +59,30 @@ seed, 2 requests each:
     is rolled by 1024 and decode wraps it.  ``[recurrent]`` lines give the
     prefill's and a decode step's measured and modeled ``scan`` shares (the
     SSD's chunk products and cross-chunk loop, the RG-LRU's gates and
-    doubling scan).  Neither is served in phase 8.
+    doubling scan).  Neither is served in phase 8;
+  - qwen2-vl-2b in fp32 at full depth (28 layers of GQA 12:2 at D = 128,
+    M-RoPE, a tied head over 151936 tokens; 1.54 B params), as the dense
+    LMs on 2048-token prompts (three equal M-RoPE streams), then its own
+    phase ``[mrope]``: the stub frontend's inputs, embeddings (2, 2048,
+    1536) with an image prompt's three distinct M-RoPE streams (16 text
+    positions, a 32 x 32 grid of merged patches at t = 16, h = 16 + row,
+    w = 16 + col, 1008 text positions from 48 on), through
+    ``launch/steps.py``: the prefill on both tiers (logits within 1e-3 of
+    their scale), then, counts set to 0 just before, the kernel tier's
+    prefill and 16 decode steps on (2, 1, 1536) embeddings at ``cur_len``;
+  - whisper-base in fp32 at full depth (6 encoder and 6 decoder layers of d
+    512, 70.7 M params), through the model's own entry points
+    (``launch/steps.py``'s prefill and serve steps; the LM workload's stages
+    carry no frame embeddings, as in the reference): frame embeddings (2,
+    1500, 512), whisper's 30-second window drawn from the seed, and a
+    decoder prompt of ``dec_len_for(1500)`` = 187 tokens, then 64 greedy
+    tokens against the context (each step projects every layer's cross K/V
+    from it, as the reference's).  Its phases 3-7 are ``run_encdec_path``'s:
+    18 flash calls a prefill (6 encoder, 6 causal self, 6 cross), the
+    prefill's logits on both tiers, the main path's launches equal to the
+    plan, a profiled decode step, the prefill and decode step traced on
+    ``meta`` for the modeled shares beside the measured ones, and reduced
+    greedy tokens on the card equal to the CPU's.
 
 Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
 8b once; each passes or raises, and nothing is caught:
@@ -176,6 +199,7 @@ no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -431,10 +455,22 @@ def kernel_modules():
             "temporal_conv1d": conv2d}
 
 
-def record_main_path(wl, model, tokens, seed, **gen_kw):
-    rec = Recorder()
+@contextlib.contextmanager
+def recording(rec: Recorder):
+    """While open: every kernel wrapper goes through ``rec``."""
     mods = kernel_modules()
     saved = {n: getattr(m, n) for n, m in mods.items()}
+    for n, m in mods.items():
+        setattr(m, n, rec.wrap(n, saved[n]))
+    try:
+        yield rec
+    finally:
+        for n, m in mods.items():
+            setattr(m, n, saved[n])
+
+
+def record_main_path(wl, model, tokens, seed, **gen_kw):
+    rec = Recorder()
     orig_run_stage = wl.run_stage
 
     def run_stage(params, stage, *a, **k):
@@ -442,14 +478,11 @@ def record_main_path(wl, model, tokens, seed, **gen_kw):
         return orig_run_stage(params, stage, *a, **k)
 
     wl.run_stage = run_stage
-    for n, m in mods.items():
-        setattr(m, n, rec.wrap(n, saved[n]))
     try:
-        wl.generate(model, tokens, seed, impl="auto", **gen_kw)
-        torch.cuda.synchronize()
+        with recording(rec):
+            wl.generate(model, tokens, seed, impl="auto", **gen_kw)
+            torch.cuda.synchronize()
     finally:
-        for n, m in mods.items():
-            setattr(m, n, saved[n])
         del wl.run_stage
     return rec
 
@@ -958,7 +991,7 @@ def decode_profile(model, cfg, tokens, steps: int = 3) -> dict:
     prompts = torch.as_tensor(np.stack(tokens), device="cuda")
     if is_lm(cfg):
         S = prompts.shape[1]
-        _, caches = model.prefill(prompts, max_len=S + steps + 1)
+        _, caches, _ = model.prefill(prompts, max_len=S + steps + 1)
         tok = prompts[:, -1:]
 
         def step():
@@ -1013,6 +1046,34 @@ def _shares_text(shares: dict) -> str:
     return ", ".join(f"{k} {v:.3f}" for k, v in shares.items() if v)
 
 
+def measured_stages(name: str, profiles: dict, rows, events, hw) -> dict:
+    """Each profiled pass (``{stage: (description, profile_passes(...))}``)
+    beside the modeled shares of its stage's events, logged; a stage whose
+    pass shows no launch of a hand kernel the main path launched there
+    fails."""
+    from repro_torch.core import profiler_analysis as pa
+
+    out = {}
+    for st, (what, prof) in profiles.items():
+        names = set(prof["kernels"])
+        launched = {r["kernel"] for r in rows if r["launches_by_stage"].get(st)}
+        missing = [k for k in launched if not any(KERNEL_SYMBOL[k] in n for n in names)]
+        if missing:
+            raise AssertionError(f"{name} {st}: the profile shows no {missing} launch")
+        model_sh = modeled(events, st, hw)
+        out[st] = dict(prof, what=what, modeled=model_sh)
+        sh = prof["shares"]
+        log(f"[characterize] {name} {st} ({what}) measured: card busy "
+            f"{prof['busy_ms']:.2f} of {prof['window_ms']:.2f} ms (idle share "
+            f"{prof['idle_share']:.3f}), {prof['launches']:.0f} launches; shares "
+            f"{_shares_text({k: sh[k] for k in pa.CATEGORIES})} (other {sh['other']:.3f})"
+            + (f"; temporal share of attention {sh['temporal_of_attention']:.3f}"
+               if prof["category_ms"]["attention_temporal"] else "")
+            + f" | modeled {_shares_text(model_sh)} | top scopes (ms) "
+            + ", ".join(f"{k or '-'} {v:.2f}" for k, v in list(prof["scope_ms"].items())[:4]))
+    return out
+
+
 def characterize_path(cfg, model, tokens, rows, passes, decode_prof) -> dict:
     """The characterize phase of one path: (a) the port's full-width event
     stream on ``meta`` (``trace_generative``, impl auto), its category
@@ -1026,7 +1087,6 @@ def characterize_path(cfg, model, tokens, rows, passes, decode_prof) -> dict:
     baseline) against the kernel tier, beside ``amdahl.flash_speedup`` of
     the naive and auto streams."""
     from repro_torch.core import amdahl, characterize, perf_model, prefill_decode, seq_profile
-    from repro_torch.core import profiler_analysis as pa
     from repro_torch.workload import workload_for
 
     hw = H100_SXM if next(model.parameters()).dtype == torch.bfloat16 else H100_SXM_FP32
@@ -1038,7 +1098,7 @@ def characterize_path(cfg, model, tokens, rows, passes, decode_prof) -> dict:
     out = dict(hardware=hw.name, trace_s=trace_s, events=len(events),
                modeled_generate=perf_model.breakdown_fraction(events, hw),
                seq_min=sp.min_seq, seq_max=sp.max_seq, seq_variation=sp.variation,
-               regime=prefill_decode.classify(events), stages={})
+               regime=prefill_decode.classify(events))
     log(f"[characterize] {cfg.name} modeled ({hw.name}, {len(events)} events traced on meta in "
         f"{trace_s:.2f} s): {_shares_text(out['modeled_generate'])}; self-attention sequence "
         f"{sp.min_seq}-{sp.max_seq} ({sp.variation:.1f}x); {out['regime']['regime']} "
@@ -1049,23 +1109,7 @@ def characterize_path(cfg, model, tokens, rows, passes, decode_prof) -> dict:
         profiles = {st: (what, profile_passes(fn)) for st, what, fn in measured}
     if decode_prof is not None:
         profiles["decode" if is_lm(cfg) else "ar_decode"] = ("decode step", decode_prof)
-    for st, (what, prof) in profiles.items():
-        names = set(prof["kernels"])
-        launched = {r["kernel"] for r in rows if r["launches_by_stage"].get(st)}
-        missing = [k for k in launched if not any(KERNEL_SYMBOL[k] in n for n in names)]
-        if missing:
-            raise AssertionError(f"{cfg.name} {st}: the profile shows no {missing} launch")
-        model_sh = modeled(events, st, hw)
-        out["stages"][st] = dict(prof, what=what, modeled=model_sh)
-        sh = prof["shares"]
-        log(f"[characterize] {cfg.name} {st} ({what}) measured: card busy "
-            f"{prof['busy_ms']:.2f} of {prof['window_ms']:.2f} ms (idle share "
-            f"{prof['idle_share']:.3f}), {prof['launches']:.0f} launches; shares "
-            f"{_shares_text({k: sh[k] for k in pa.CATEGORIES})} (other {sh['other']:.3f})"
-            + (f"; temporal share of attention {sh['temporal_of_attention']:.3f}"
-               if prof["category_ms"]["attention_temporal"] else "")
-            + f" | modeled {_shares_text(model_sh)} | top scopes (ms) "
-            + ", ".join(f"{k or '-'} {v:.2f}" for k, v in list(prof["scope_ms"].items())[:4]))
+    out["stages"] = measured_stages(cfg.name, profiles, rows, events, hw)
     flash_stage = {"stable-diffusion": "denoise", "make-a-video": "keyframe_denoise"}.get(
         cfg.name)
     if flash_stage is not None:
@@ -1666,9 +1710,293 @@ def cut_decode(wl, steps: int):
     return wl
 
 
+# ---------------------------------------------------------------------------
+# The VLM's embedding path (qwen2-vl-2b, phase [mrope]) and the enc-dec path
+# (whisper-base), both through launch/steps.py
+# ---------------------------------------------------------------------------
+
+MROPE_TEXT, MROPE_GRID, MROPE_NEW = 16, 32, 16
+WHISPER_FRAMES, WHISPER_NEW = 1500, 64  # a 30-second window; 187 + 64 of its 448 positions
+SMALL_FRAMES = 24
+
+
+def image_prompt_positions(text: int, grid: int, total: int, batch: int = 2) -> torch.Tensor:
+    """(3, batch, total) M-RoPE streams of an image prompt as Qwen2-VL lays
+    one out (arXiv:2409.12191 §2.1): ``text`` tokens at 0.. in all three
+    streams, a ``grid`` x ``grid`` grid of merged patches at t = ``text``, h
+    = ``text`` + row, w = ``text`` + col, then text tokens from ``text`` +
+    ``grid`` on."""
+    t0 = torch.arange(text)
+    cell = torch.arange(grid * grid)
+    tail = torch.arange(total - text - grid * grid) + text + grid
+    streams = torch.stack([torch.cat([t0, torch.full_like(cell, text), tail]),
+                           torch.cat([t0, text + cell // grid, tail]),
+                           torch.cat([t0, text + cell % grid, tail])])
+    return streams[:, None].expand(3, batch, total).to(torch.int32)
+
+
+def mrope_phase(wl, model) -> dict:
+    """``[mrope]``: the VLM's stub-frontend inputs, 2 x 2048 embeddings with
+    an image prompt's three distinct M-RoPE streams (16 text positions, a
+    32 x 32 grid, 1008 text positions from 48 on), through
+    ``launch/steps.py``: the prefill on each tier, logits held within 1e-3
+    of their scale; then, counts set to 0 just before, the kernel tier's
+    prefill (one flash launch a layer) and 16 decode steps on (2, 1, d)
+    embeddings at ``cur_len``, as the reference decodes (no launch)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+
+    cfg, S = wl.cfg, wl.max_prompt_len
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    emb = torch.randn((2, S + MROPE_NEW, cfg.d_model), generator=g, device="cuda")
+    batch = dict(embeds=emb[:, :S],
+                 mrope_positions=image_prompt_positions(MROPE_TEXT, MROPE_GRID, S).cuda())
+    with torch.inference_mode():
+        tiers = {impl: steps.make_prefill_step(model, cfg, impl=impl)(batch)[0]
+                 for impl in ("kernel", "torch")}
+        err, scale = max_err(tiers["kernel"], tiers["torch"]), tiers["torch"].abs().max().item()
+        if not (torch.isfinite(tiers["kernel"]).all() and err <= 1e-3 * max(1.0, scale)):
+            raise AssertionError(f"{cfg.name} [mrope] prefill: kernel tier off the torch tier by "
+                                 f"{err:.3e} (max |out| {scale:.3e})")
+        del tiers
+        prefill = steps.make_prefill_step(model, cfg, max_len=S + MROPE_NEW)
+        serve = steps.make_serve_step(model, cfg)
+        torch.cuda.synchronize()
+        build.launches.clear()  # counts start at 0 just before the path
+        t0 = time.perf_counter()
+        logits, caches, _ = prefill(batch)
+        torch.cuda.synchronize()
+        pre_s, pre_launches = time.perf_counter() - t0, dict(build.launches)
+        t0 = time.perf_counter()
+        for i in range(MROPE_NEW):
+            logits, caches = serve(emb[:, S + i:S + i + 1], caches, S + i)
+        torch.cuda.synchronize()
+        dec_s, launches = time.perf_counter() - t0, dict(build.launches)  # read just after
+    if tuple(logits.shape) != (2, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name} [mrope]: decode logits {tuple(logits.shape)}")
+    if pre_launches != {"flash_attention": cfg.n_layers} or launches != pre_launches:
+        raise AssertionError(f"{cfg.name} [mrope]: launches {pre_launches} after the prefill, "
+                             f"{launches} after decode; expected {cfg.n_layers} flash, all in "
+                             f"the prefill")
+    out = dict(tier_err=err, tier_scale=scale, prefill_s=pre_s, decode_ms=dec_s / MROPE_NEW * 1e3,
+               launches=launches)
+    log(f"[mrope] {cfg.name} embeds (2, {S}, {cfg.d_model}) with image-prompt M-RoPE streams "
+        f"(text {MROPE_TEXT}, grid {MROPE_GRID}x{MROPE_GRID}, text {S - MROPE_TEXT - MROPE_GRID**2}"
+        f" from {MROPE_TEXT + MROPE_GRID}): prefill kernel vs torch tier max abs diff {err:.3e} "
+        f"(max |out| {scale:.3e}); prefill {pre_s:.3f} s, {MROPE_NEW} embedding decode steps "
+        f"{out['decode_ms']:.2f} ms each; launches {launches}")
+    return out
+
+
+def encdec_generate(model, cfg, batch: dict, new: int, *, impl: str = "auto", on_stage=None):
+    """Greedy through ``launch/steps.py``: the prefill step (frame
+    embeddings and decoder tokens), then ``new`` serve steps against its
+    context -> ((2, new) tokens, the prefill's last logits, seconds by
+    stage).  ``on_stage(name)`` is called as each stage starts."""
+    from repro_torch.launch import steps
+
+    dev = batch["tokens"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    S = batch["tokens"].shape[1]
+    prefill = steps.make_prefill_step(model, cfg, impl=impl, max_len=S + new)
+    serve = steps.make_serve_step(model, cfg, impl=impl)
+    stage_s, out = {}, []
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        if on_stage:
+            on_stage("prefill")
+        logits, caches, context = prefill(batch)
+        first = logits
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        sync()
+        stage_s["prefill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if on_stage:
+            on_stage("decode")
+        for i in range(new):
+            out.append(nxt)
+            logits, caches = serve(nxt, caches, S + i, context=context)
+            nxt = logits[:, 0].argmax(-1)[:, None]
+        sync()
+        stage_s["decode"] = time.perf_counter() - t0
+    return torch.cat(out, 1), first, stage_s
+
+
+def encdec_batch(cfg, frames: int, device, seed: int = SEED) -> dict:
+    """Seeded stub-frontend inputs: frame embeddings (2, frames, d) and
+    ``dec_len_for(frames)`` decoder tokens (the reference's ratio)."""
+    from repro_torch.launch import steps
+
+    g = torch.Generator().manual_seed(seed)
+    S = steps.dec_len_for(cfg, frames)
+    return dict(enc_embeds=torch.randn((2, frames, cfg.d_model), generator=g).to(device),
+                tokens=torch.randint(0, cfg.vocab, (2, S), generator=g).to(device))
+
+
+def run_encdec_path(cfg, *, smi: str) -> dict:
+    """Phases 3-7 of the enc-dec path (whisper-base).  The LM workload's
+    stages carry no frame embeddings, so the path is the model's own entry
+    points through ``launch/steps.py``, as in the reference: the prefill
+    step on 2 x 1500 frames and 187 decoder tokens, then 64 greedy serve
+    steps against the context."""
+    from repro_torch.core import characterize, perf_model
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.nn import init_params
+    from repro_torch.workload import reduced_workload, workload_for
+
+    wl = workload_for(cfg)
+    passes = {"prefill": 1, "decode": WHISPER_NEW}
+
+    # -- 3. record ------------------------------------------------------------
+    with phase(cfg.name, "init + record"):
+        t0 = time.perf_counter()
+        model = wl.init(SEED, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[init] full-width {cfg.name}: {n_params / 1e6:.1f} M params (float32) in "
+            f"{init_s:.2f} s")
+        batch = encdec_batch(cfg, WHISPER_FRAMES, "cuda")
+        S = batch["tokens"].shape[1]
+        rec = Recorder()
+        with recording(rec):
+            encdec_generate(model, cfg, batch, 2, on_stage=lambda st: setattr(rec, "stage", st))
+        n_rec = sum(sum(c["counts"].values()) for c in rec.calls.values())
+        log(f"[record] {cfg.name}: {len(rec.calls)} distinct kernel calls, {n_rec} calls, in "
+            f"stages {sorted({st for c in rec.calls.values() for st in c['counts']})}")
+        if n_rec != 3 * cfg.n_layers:  # encoder, decoder self and cross, one a layer
+            raise AssertionError(f"{cfg.name}: {n_rec} recorded calls, expected "
+                                 f"{3 * cfg.n_layers}")
+
+    # -- 4. kernels vs plain ----------------------------------------------------
+    with phase(cfg.name, "kernels"):
+        rows = check_kernels(rec, passes, {"prefill": 1, "decode": 2})
+        del rec
+        (OUT_DIR / f"kernel_calls_{cfg.name}.json").write_text(
+            json.dumps(dict(device=smi, rows=rows), indent=1))
+
+    # -- 5. the kernel tier against the torch tier at full width ------------------
+    with phase(cfg.name, "tiers"), torch.inference_mode():
+        fns = {impl: (lambda impl=impl: steps.make_prefill_step(model, cfg, impl=impl)(batch)[0])
+               for impl in ("kernel", "torch")}
+        out = {impl: fn() for impl, fn in fns.items()}
+        tier_ms = {impl: time_ms(fn, min_total_ms=0, max_reps=3) for impl, fn in fns.items()}
+        err, scale = max_err(out["kernel"], out["torch"]), out["torch"].abs().max().item()
+        log(f"[tier] {cfg.name} full-width prefill (logits over frames (2, {WHISPER_FRAMES}) and "
+            f"tokens (2, {S})): kernel tier {tier_ms['kernel']:.1f} ms, torch tier "
+            f"{tier_ms['torch']:.1f} ms; max abs diff {err:.3e} (max |out| {scale:.3e}), "
+            f"relative L2 {rel_l2(out['kernel'], out['torch']):.3e}")
+        if not (torch.isfinite(out["kernel"]).all() and err <= 1e-3 * max(1.0, scale)):
+            raise AssertionError(f"{cfg.name} prefill: kernel tier disagrees with the torch "
+                                 f"tier: {err}")
+        del out
+
+    # -- 6. main path ---------------------------------------------------------
+    with phase(cfg.name, "main"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.launches.clear()  # counts start at 0 just before the main path
+        t0 = time.perf_counter()
+        toks, _, stage_s = encdec_generate(model, cfg, batch, WHISPER_NEW)
+        wall = time.perf_counter() - t0
+        launches = dict(build.launches)  # read just after
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[main-{cfg.name}] {cfg.name} 2 x ({WHISPER_FRAMES} frames, {S} + {WHISPER_NEW} "
+            f"tokens) in {wall:.2f} s; prefill {stage_s['prefill']:.3f} s, decode "
+            f"{stage_s['decode'] / WHISPER_NEW * 1e3:.2f} ms a token; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+        if tuple(toks.shape) != (2, WHISPER_NEW) or not ((toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"{cfg.name}: tokens {tuple(toks.shape)} outside [0, vocab)")
+        expected = {n: sum(r["launches"] for r in rows if r["kernel"] == n) for n in SOURCES}
+        expected = {n: c for n, c in expected.items() if c}
+        if launches != expected or launches.get("flash_attention") != 3 * cfg.n_layers:
+            raise AssertionError(f"{cfg.name}: launches {launches} differ from the recorded "
+                                 f"plan {expected}")
+        split = breakdown(rows, passes)
+        per_kernel = summarize({cfg.name: dict(rows=rows, launches=launches)})
+        log(f"[kernels] {cfg.name} over one prefill + {WHISPER_NEW} tokens (ms): " + "; ".join(
+            f"{k['name']} x{k['launches']}: wall {k['ms']:.2f}, device {k['device_ms']:.2f}, "
+            f"bound {k['bound_ms']:.2f}, library {k['library_ms']:.2f}, plain {k['plain_ms']:.2f}"
+            for k in per_kernel))
+
+    # -- 6b. one decode step, profiled -------------------------------------------
+    with phase(cfg.name, "decode profile"), torch.inference_mode():
+        _, caches, context = steps.make_prefill_step(model, cfg, max_len=S + 4)(batch)
+        serve = steps.make_serve_step(model, cfg)
+        tok = batch["tokens"][:, -1:]
+        prof = profile_passes(lambda: serve(tok, caches, S, context=context), 3)
+        log(f"[decode] {cfg.name} one decode step: wall {prof['window_ms']:.2f} ms, card busy "
+            f"{prof['busy_ms']:.2f} ms (idle share {prof['idle_share']:.3f}), "
+            f"{prof['launches']:.0f} launches; most device time (ms): "
+            + "; ".join(f"{k} {v:.2f}" for k, v in prof["top_ms"].items()))
+        log(f"[lm] {cfg.name} ({n_params / 1e6:.1f} M params, float32): prefill 2 x "
+            f"({WHISPER_FRAMES} frames, {S} tokens) {stage_s['prefill']:.3f} s; decode "
+            f"{stage_s['decode'] / WHISPER_NEW * 1e3:.2f} ms a token over {WHISPER_NEW} tokens; "
+            f"a decode step: card busy {prof['busy_ms']:.2f} ms, idle share "
+            f"{prof['idle_share']:.3f}, {prof['launches']:.0f} launches; main-path peak "
+            f"{peak / 2**30:.2f} GiB")
+        del caches, context
+
+    # -- 6c. characterize: the modeled breakdown beside the measured one ---------
+    with phase(cfg.name, "characterize"):
+        hw = H100_SXM_FP32
+        meta = workload_for(cfg).model
+        t0 = time.perf_counter()
+        m_tok = torch.empty((2, S), dtype=torch.int64, device="meta")
+        m_enc = torch.empty((2, WHISPER_FRAMES, cfg.d_model), device="meta")
+        events = [dataclasses.replace(e, name=f"prefill/{e.name}") for e in
+                  characterize.trace_workload(lambda t, e: meta.prefill(
+                      t, enc_embeds=e, impl="auto", max_len=S + 1), m_tok, m_enc)]
+        events += [dataclasses.replace(e, name=f"decode/{e.name}") for e in
+                   characterize.trace_workload(lambda t, x: meta.decode_step(
+                       t, meta.init_cache(2, S + 1), S, context=x), m_tok[:, :1], m_enc)]
+        trace_s = time.perf_counter() - t0
+        chz = dict(hardware=hw.name, trace_s=trace_s, events=len(events),
+                   modeled_generate=perf_model.breakdown_fraction(events, hw))
+        log(f"[characterize] {cfg.name} modeled ({hw.name}, {len(events)} events of the prefill "
+            f"and one decode step traced on meta in {trace_s:.2f} s): "
+            f"{_shares_text(chz['modeled_generate'])}")
+        with torch.inference_mode():
+            pre = profile_passes(lambda: steps.make_prefill_step(model, cfg)(batch))
+        chz["stages"] = measured_stages(cfg.name, {"prefill": ("prefill step", pre),
+                                                   "decode": ("decode step", prof)},
+                                        rows, events, hw)
+
+    # -- 7. small input: the card's kernel path against the CPU plain path --------
+    with phase(cfg.name, "small"):
+        rwl = reduced_workload(cfg)
+        state = init_params(rwl.model, SEED)
+        small = {}
+        for dev in ("cuda", "cpu"):
+            b = encdec_batch(rwl.cfg, SMALL_FRAMES, dev)
+            b["tokens"] %= rwl.cfg.vocab
+            small[dev] = encdec_generate(rwl.load(state, dev), rwl.cfg, b, 8)
+        (tc, lc, _), (tcpu, lcpu, _) = small["cuda"], small["cpu"]
+        log(f"[small] reduced {rwl.cfg.name} decode, card vs CPU plain: "
+            f"{int((tc.cpu() != tcpu).sum())} of {tcpu.numel()} tokens differ; prefill logits "
+            f"max abs diff {max_err(lc.cpu(), lcpu):.3e} (max |out| {lcpu.abs().max().item():.3e})")
+        if not torch.equal(tc.cpu(), tcpu):
+            raise AssertionError(f"reduced {cfg.name}: tokens differ, card vs CPU")
+        small_err = max_err(lc.cpu(), lcpu)
+        assert_close(f"reduced {cfg.name} prefill", lc.cpu(), lcpu, dict(rtol=1e-4, atol=1e-4))
+
+    del model
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, summary=dict(
+        params_m=n_params / 1e6, dtype="float32", init_s=init_s, passes=passes,
+        generate_s=wall, stage_s=stage_s, tier_ms=tier_ms, peak_gib=peak / 2**30,
+        kernel_vs_torch_tier_err={"prefill": err}, decode_profile=prof, characterize=chz,
+        small_err=small_err, launches=launches, kernels=per_kernel, **split))
+
+
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
              serve_fn=None, decode_steps: int | None = None, max_new: int | None = None,
-             prompt_len: int | None = None) -> dict:
+             prompt_len: int | None = None, extra=None) -> dict:
+    """Phases 3-7 of one path through ``wl.generate``, then ``extra``
+    (``(name, fn)``: ``fn(wl, model)`` as a phase of its own, its result in
+    the summary under ``name``) and phase 8 (``serve_fn``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
@@ -1887,6 +2215,11 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
         assert_close(f"reduced {cfg.name} generate", out_cuda.cpu(), out_cpu,
                      dict(rtol=1e-4, atol=1e-4))
 
+    extra_out = {}
+    if extra is not None:
+        with phase(cfg.name, extra[0]):
+            extra_out[extra[0]] = extra[1](wl, model)
+
     # -- 8. serving through the engine (SD, Imagen, LLaMA) ------------------------
     served = None
     if serve_fn is not None:
@@ -1901,7 +2234,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
         peak_gib=peak / 2**30, kernel_vs_torch_tier_err=tier_err,
         tier_vs_fp32_rel_l2=tier_f32_err, moe=moe, decode_profile=prof, characterize=chz,
         small_err=small_err,
-        launches=launches, kernels=per_kernel, **split))
+        launches=launches, kernels=per_kernel, **split, **extra_out))
 
 
 # ---------------------------------------------------------------------------
@@ -2002,6 +2335,12 @@ def main(only=()) -> int:
             get_config(arch), tag=f"main-{arch}", record_steps=1, smi=smi,
             kernels=() if arch == "mamba2-780m" else ("flash_attention",),
             max_new=DENSE_LM_NEW, prompt_len=prompt_len)
+    # the VLM as the dense LMs on token prompts, then its embedding path
+    # ([mrope]); the enc-dec model through its own entry points
+    runs["qwen2-vl-2b"] = lambda: run_path(
+        get_config("qwen2-vl-2b"), tag="main-qwen2-vl-2b", record_steps=1, smi=smi,
+        kernels=("flash_attention",), max_new=DENSE_LM_NEW, extra=("mrope", mrope_phase))
+    runs["whisper-base"] = lambda: run_encdec_path(get_config("whisper-base"), smi=smi)
     unknown = set(only) - set(runs) - {"fleet"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")

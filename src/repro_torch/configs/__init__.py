@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.configs.base import LMConfig, check_ported
+from repro_torch.configs.base import LMConfig
 
 _REGISTRY: dict[str, Any] = {}
 
@@ -38,9 +38,7 @@ def list_configs() -> list[str]:
 
 def reduced(cfg: LMConfig) -> LMConfig:
     """Tiny same-family config for CPU tests (``repro.configs.reduced``):
-    the dense, MoE, SSM and window branches; the enc-dec and VLM families'
-    reductions come with them."""
-    check_ported(cfg)
+    the dense, MoE, SSM, encoder, window and M-RoPE branches."""
     changes: dict = dict(
         name=cfg.name + "-reduced", n_layers=max(2, min(4, cfg.n_layers)), d_model=64,
         n_heads=4, n_kv_heads=min(4, max(1, cfg.n_kv_heads * 4 // max(cfg.n_heads, 1))),
@@ -54,20 +52,25 @@ def reduced(cfg: LMConfig) -> LMConfig:
             d_ff_shared=64 if cfg.moe.n_shared else 0, capacity_factor=8.0))
     if cfg.ssm is not None:
         changes["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, head_dim=16, chunk=16)
+    if cfg.encoder is not None:
+        changes["encoder"] = dataclasses.replace(cfg.encoder, n_layers=2)
+    if cfg.mrope_sections is not None:
+        changes["mrope_sections"] = (2, 3, 3)  # head_dim 16 -> D/2 = 8
     return dataclasses.replace(cfg, **changes)
 
 
-# assigned architectures: the dense, MoE, SSM and hybrid ones, in the order
-# of the reference's ASSIGNED_ARCHS.  whisper-base and qwen2-vl-2b come with
-# their families' layers (enc-dec, VLM) and are not registered yet.
+# assigned architectures, in the order of the reference's ASSIGNED_ARCHS
 from repro_torch.configs import olmo_1b  # noqa: E402,F401
 from repro_torch.configs import qwen2_72b  # noqa: E402,F401
 from repro_torch.configs import glm4_9b  # noqa: E402,F401
 from repro_torch.configs import stablelm_3b  # noqa: E402,F401
 from repro_torch.configs import mamba2_780m  # noqa: E402,F401
+from repro_torch.configs import whisper_base  # noqa: E402,F401
+from repro_torch.configs import qwen2_vl_2b  # noqa: E402,F401
 from repro_torch.configs import qwen3_moe_30b_a3b  # noqa: E402,F401
 from repro_torch.configs import deepseek_moe_16b  # noqa: E402,F401
 from repro_torch.configs import recurrentgemma_9b  # noqa: E402,F401
 
 ASSIGNED_ARCHS = ["olmo-1b", "qwen2-72b", "glm4-9b", "stablelm-3b", "mamba2-780m",
-                  "qwen3-moe-30b-a3b", "deepseek-moe-16b", "recurrentgemma-9b"]
+                  "whisper-base", "qwen2-vl-2b", "qwen3-moe-30b-a3b", "deepseek-moe-16b",
+                  "recurrentgemma-9b"]

@@ -1,21 +1,20 @@
 """The LM config of the port (``repro.configs.base.LMConfig``), field for
-field with torch dtypes, and its ``MoESpec`` and ``SSMSpec``.
+field with torch dtypes, and its ``MoESpec``, ``SSMSpec`` and
+``EncoderSpec``.
 
 Every field of the reference is kept, so a config copies across unchanged.
-The port builds decoder-only stacks of ``"dense"``, ``"moe"``, ``"mamba2"``,
-``"rglru"`` and ``"local_attn"`` blocks (LLaMA, the dense, MoE, SSM and
-hybrid assigned LMs, and the image transformers' blocks), with RMSNorm,
-LayerNorm or the non-parametric LN, optional qk-norm, and an untied or tied
-head.  ``encoder``, ``mrope_sections`` and ``embed_inputs`` describe the
-enc-dec and VLM families: a model that needs an encoder, M-RoPE or
-embedding inputs raises ``NotImplementedError`` where it is built
-(:func:`check_ported`).
+The port builds every LM family of the reference: stacks of ``"dense"``,
+``"moe"``, ``"mamba2"``, ``"rglru"`` and ``"local_attn"`` blocks with
+RMSNorm, LayerNorm or the non-parametric LN, optional qk-norm, and an
+untied or tied head; an encoder and cross-attention decoder (``encoder``,
+whisper); M-RoPE and embedding inputs (``mrope_sections``,
+``embed_inputs``, Qwen2-VL).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -45,6 +44,17 @@ class SSMSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    """The reference's ``repro.configs.base.EncoderSpec``: the encoder stack
+    of an enc-dec model (whisper), as wide as the decoder.  The conv/log-mel
+    frontend is a stub: inputs are precomputed frame embeddings of shape
+    (B, enc_len(seq), d_model)."""
+
+    n_layers: int
+    enc_len: Callable[[int], int] = staticmethod(lambda s: s)
+
+
+@dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | audio | vlm
@@ -70,7 +80,7 @@ class LMConfig:
     block_pattern: tuple = ("dense",)
     moe: MoESpec | None = None
     ssm: SSMSpec | None = None
-    encoder: Any = None  # EncoderSpec (enc-dec, whisper)
+    encoder: EncoderSpec | None = None  # enc-dec (whisper)
     embed_inputs: bool = False  # inputs are embeddings (vlm stub frontend)
     dtype: Any = torch.float32
     source: str = ""
@@ -92,22 +102,50 @@ class LMConfig:
     def is_encdec(self) -> bool:
         return self.encoder is not None
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding, blocks, head, and an
+        encoder's layers and the decoder's cross-attention), as the
+        reference's: projections and MLPs only, no bias or norm leaf."""
+        d, V = self.d_model, self.vocab
+        H, KVH, hd = self.n_heads, self.n_kv_heads, self.resolved_head_dim
+        attn = d * (H + 2 * KVH) * hd + H * hd * d
+        mlp = (3 if self.mlp_gated else 2) * d * self.d_ff
+        total = V * d * (1 if self.tie_embeddings else 2)
+        for t in self.block_types():
+            if t in ("dense", "moe", "local_attn"):
+                total += attn
+            if t in ("dense", "local_attn"):
+                total += mlp
+            elif t == "moe":
+                m = self.moe
+                total += m.n_experts * 3 * d * m.d_ff_expert + d * m.n_experts
+                if m.n_shared:
+                    total += 3 * d * (m.d_ff_shared or m.n_shared * m.d_ff_expert)
+            elif t == "mamba2":
+                s = self.ssm
+                di = s.expand * d
+                total += d * (2 * di + 2 * s.d_state + di // s.head_dim) + di * d
+            elif t == "rglru":  # d_rnn = d_model
+                total += 3 * d * d + 2 * d * d + mlp
+        if self.encoder is not None:
+            total += self.encoder.n_layers * (attn + mlp) + self.n_layers * attn
+        return int(total)
 
-PORTED_BLOCKS = ("dense", "moe", "mamba2", "rglru", "local_attn")
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """The reference's ``repro.configs.base.ShapeSpec``: one input shape of
+    the assigned set."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
 
 
-def check_ported(cfg: LMConfig) -> None:
-    """Raise unless ``cfg`` is a decoder-only stack of blocks the port
-    builds (:data:`PORTED_BLOCKS`)."""
-    missing = sorted({t for t in cfg.block_types() if t not in PORTED_BLOCKS})
-    for field, what in (("encoder", "enc-dec"), ("mrope_sections", "M-RoPE (VLM)"),
-                        ("embed_inputs", "embedding inputs (VLM)")):
-        if getattr(cfg, field):
-            missing.append(what)
-    if cfg.norm not in ("rmsnorm", "layernorm", "nonparametric_ln"):
-        missing.append(f"norm {cfg.norm!r}")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the port builds dense, MoE, "
-            "SSM and hybrid decoder-only stacks, and the other LM families come with their "
-            "own slice")
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}

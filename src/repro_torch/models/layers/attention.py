@@ -22,8 +22,10 @@ kernel's window mask); in decode, a cache of at most ``window`` rows is a
 ring buffer, as the reference's: row ``cur_len % cap`` takes the new key,
 ``min(cur_len + 1, cap)`` rows are attended with no further mask (RoPE has
 placed every key, and softmax does not depend on the rows' order), and a
-longer cache is read through the window mask instead.  M-RoPE comes with
-the VLM family (``configs.base.check_ported`` refuses it).
+longer cache is read through the window mask instead.  With
+``mrope_sections`` (Qwen2-VL) q and k rotate by M-RoPE: (3, B, S) positions
+as given, or (B, S) ones as three equal streams, so a decode step rotates
+at ``cur_len`` in all three, as the reference's.
 
 Each attention call records the reference's event (``_attention_event``),
 computed from the caller's ``impl`` string (``tiers.event_impl``): the
@@ -81,13 +83,15 @@ class Attention(Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int, *, n_kv_heads: int | None = None,
                  qkv_bias: bool = False, out_bias: bool = False, qk_norm: bool = False,
                  rope: bool = False, rope_base: float = 10000.0, rope_pct: float = 1.0,
-                 causal: bool = False, window: int | None = None, cross: bool = False,
-                 dtype=torch.float32, name: str = "attn"):
+                 mrope_sections: tuple | None = None, causal: bool = False,
+                 window: int | None = None, cross: bool = False, dtype=torch.float32,
+                 name: str = "attn"):
         super().__init__()
         self.n_heads, self.head_dim, self.cross, self.name = n_heads, head_dim, cross, name
         self.window = window
         self.n_kv_heads = n_heads if n_kv_heads is None else n_kv_heads
         self.rope, self.rope_base, self.rope_pct = rope, rope_base, rope_pct
+        self.mrope_sections = mrope_sections
         self.causal, self.dtype = causal, dtype
         self.wq = Dense(d_model, n_heads * head_dim, qkv_bias, dtype, name="wq")
         self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wk")
@@ -104,6 +108,10 @@ class Attention(Module):
     def _rope(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
         if positions is None or not self.rope:
             return x
+        if self.mrope_sections is not None:
+            if positions.ndim == 2:
+                positions = rope_lib.text_mrope_positions(positions)
+            return rope_lib.apply_mrope(x, positions, self.mrope_sections, base=self.rope_base)
         return rope_lib.apply_rope(x, positions, base=self.rope_base, rotary_pct=self.rope_pct)
 
     def project_kv(self, src: torch.Tensor) -> AttentionCache:
@@ -140,14 +148,15 @@ class Attention(Module):
         return AttentionCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
 
     def decode(self, x: torch.Tensor, cache: AttentionCache | None, cur_len: int, *,
-               cross_cache: AttentionCache | None = None):
+               cross_cache: AttentionCache | None = None, cross_len=None):
         """x (B, 1, d_model), ``cur_len`` tokens already in ``cache`` ->
         (y, cache).  Self-attention rotates q and the new k at ``cur_len``,
         writes k and v at row ``cur_len`` (cast to the cache's dtype) and
         attends to ``cur_len + 1`` rows, or, in a window's ring buffer, at
         row ``cur_len % cap`` and to ``min(cur_len + 1, cap)`` rows;
-        cross-attention attends to all of the precomputed ``cross_cache``
-        and leaves ``cache`` as it is."""
+        cross-attention attends to the first ``cross_len`` rows (an int, or
+        one length a request; default all) of the precomputed
+        ``cross_cache`` and leaves ``cache`` as it is."""
         B = x.shape[0]
         q = self._heads(self.wq(x), self.n_heads)
         if self.cross:
@@ -155,8 +164,8 @@ class Attention(Module):
                 raise ValueError("cross-attention decode needs a cross_cache")
             if self.qk_norm:
                 q = self.q_norm(q)
-            out = attn_ops.decode_attention(q, cross_cache.k, cross_cache.v,
-                                            kv_len=cross_cache.k.shape[1])
+            kv_len = cross_cache.k.shape[1] if cross_len is None else cross_len
+            out = attn_ops.decode_attention(q, cross_cache.k, cross_cache.v, kv_len=kv_len)
             _attention_event(self.name, "decode", B, 1, cross_cache.k.shape[1], self.n_heads,
                              self.head_dim, x.dtype, False)
             return self.wo(out.reshape(B, 1, self.n_heads * self.head_dim)), cache

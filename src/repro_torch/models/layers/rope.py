@@ -1,6 +1,6 @@
 """Rotary position embeddings (``repro.models.layers.rope``): standard RoPE
-with partial rotary.  Each head splits into halves (not interleaved pairs),
-and the angles are computed in fp32.  M-RoPE comes with the VLM family.
+with partial rotary, and Qwen2-VL's M-RoPE.  Each head splits into halves
+(not interleaved pairs), and the angles are computed in fp32.
 """
 
 from __future__ import annotations
@@ -36,3 +36,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, base: float = 10000.
     x1, x2 = xr.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
     return torch.cat([out, x_pass], dim=-1) if rot_d < D else out
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
+    # the stream each of the D/2 channels reads: the reference's jnp.repeat
+    # of arange(3) by the sections
+    ids = torch.repeat_interleave(torch.arange(3), torch.tensor(sections))
+    return ids.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple, *,
+                base: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: x (B, S, H, D) rotated at ``positions``
+    (3, B, S), the temporal, height and width streams.  The D/2 frequency
+    channels split into ``sections`` (summing to D/2), each rotated by its
+    own stream; with three equal streams it is ``apply_rope``."""
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to D/2 = {D // 2}")
+    inv = _freqs_on(D, base, x.device)
+    pos = positions.float()[_section_ids(tuple(sections), x.device)]  # (D/2, B, S)
+    angles = pos.movedim(0, -1) * inv  # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) -> (3, B, S) with identical streams (text-only M-RoPE)."""
+    return positions[None].expand(3, *positions.shape)

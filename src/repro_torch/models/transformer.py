@@ -1,12 +1,13 @@
-"""Transformer blocks and the decoder-only LM (``repro.models.transformer``):
-the image transformers' blocks (Muse, Parti), the LLM baseline (LLaMA2-7B)
-and the assigned dense, MoE, SSM and hybrid LMs.
+"""Transformer blocks and the LM (``repro.models.transformer``): the image
+transformers' blocks (Muse, Parti), the LLM baseline (LLaMA2-7B) and every
+assigned LM family: dense, MoE, SSM, hybrid, enc-dec (whisper) and the VLM
+(Qwen2-VL).
 
 ``Block`` is built from an ``LMConfig`` as the reference's, one residual
 layer of a block type:
 
   - ``"dense"`` / ``"moe"`` / ``"local_attn"``: RMSNorm or LayerNorm, GQA
-    self-attention with RoPE (causal or not, a local window in
+    self-attention with RoPE or M-RoPE (causal or not, a local window in
     ``"local_attn"``) and optional qk-norm, optional cross-attention to a
     context, then the plain or gated MLP, or in a ``"moe"`` block the MoE
     FFN (key ``moe``).  A ``"moe"`` block's forward (the prefill) drops
@@ -27,27 +28,39 @@ reference's ``_to_capacity``), ``{"ssm": Mamba2State}`` or ``{"rnn":
 RGLRUState}``, each leaf stacked (n, B, ...); ``decode_step`` runs one token
 against them, writing each layer's slice in place.
 
+The enc-dec model (``cfg.encoder``) adds an ``encoder`` subtree (stacked
+non-causal dense blocks with RoPE off, then ``encoder.final_norm``) and
+decoder blocks with ``norm_cross`` / ``cross_attn``: ``encode`` turns
+precomputed frame embeddings into the context, the decoder adds sinusoidal
+positions to its input (``cur_len`` in decode), and each ``decode_step``
+projects every layer's cross K/V from the context anew, as the reference's
+does.  The VLM (``embed_inputs``, ``mrope_sections``) takes embeddings
+(B, S, d) with (3, B, S) M-RoPE streams, or token ids (three equal
+streams); its ``decode_step`` takes (B, 1, d) embeddings or (B, 1) tokens.
+
 The LM keeps the reference's scanned parameter layout: each run of
 identical blocks is one group ``blocks.g{i}_{type}`` whose leaves carry a
 leading layer axis (``nn.stack_params``), so a JAX tree bridges unchanged;
 the Python loop over layers reads each layer's slice as a view
 (``nn.layer_views``): deepseek-moe's stack is ``g0_dense`` (its first
 layer) and ``g1_moe``, recurrentgemma's alternates ``g0_rglru``,
-``g1_local_attn``, ``g2_rglru``, ...  Enc-dec and VLM blocks come with
-their own slices (``configs.base.check_ported``).
+``g1_local_attn``, ``g2_rglru``, ...; whisper's encoder is
+``encoder.blocks``.
 
 Tracer scopes are the reference's unrolled ones: ``layer_g{i}_{j}_{type}``
-around each layer of the LM's prefill and decode step.
+around each layer of the LM's forward, prefill and decode step (none in the
+enc-dec decode step, as there), ``enc{i}`` around each encoder layer, and
+``encoder`` around ``forward``'s encoding (not ``prefill``'s).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import PORTED_BLOCKS, LMConfig, check_ported
+from repro_torch.configs.base import LMConfig
 from repro_torch.core import tracer
 from repro_torch.models.layers.attention import Attention, AttentionCache
-from repro_torch.models.layers.basic import Dense, Embedding
+from repro_torch.models.layers.basic import Dense, Embedding, sinusoidal_embedding
 from repro_torch.models.layers.mlp import MLP
 from repro_torch.models.layers.moe import MoE
 from repro_torch.models.layers.norms import LayerNorm, RMSNorm
@@ -57,6 +70,7 @@ from repro_torch.nn import Module, layer_views, stack_params
 
 # each recurrent block type: its state's key and type
 RECURRENT = {"mamba2": ("ssm", Mamba2State), "rglru": ("rnn", RGLRUState)}
+BLOCK_TYPES = ("dense", "moe", "local_attn", *RECURRENT)
 
 
 def _norm(c: LMConfig, name: str) -> Module:
@@ -76,16 +90,15 @@ class Block(Module):
     """One residual layer under the reference's keys: ``norm1``, ``attn``,
     ``norm_cross``, ``cross_attn``, ``norm2``, ``mlp`` (``moe``) in the
     attention blocks; ``norm1``, ``mixer`` in ``"mamba2"``; ``norm1``,
-    ``rglru``, ``norm2``, ``mlp`` in ``"rglru"``.  RoPE is on
-    (``rope=not cfg.is_encdec``), and rotates only where positions are
-    given."""
+    ``rglru``, ``norm2``, ``mlp`` in ``"rglru"``.  RoPE (M-RoPE with
+    ``cfg.mrope_sections``) is on unless the model is enc-dec (``rope=not
+    cfg.is_encdec``), and rotates only where positions are given."""
 
     def __init__(self, cfg: LMConfig, block_type: str = "dense", causal: bool = True,
                  with_cross: bool = False):
         super().__init__()
-        check_ported(cfg)
-        if block_type not in PORTED_BLOCKS:
-            raise NotImplementedError(f"{block_type!r} blocks come with their LM family")
+        if block_type not in BLOCK_TYPES:
+            raise ValueError(block_type)
         c = cfg
         self.block_type, self.with_cross = block_type, with_cross
         self.norm1 = _norm(c, "norm1")
@@ -99,7 +112,8 @@ class Block(Module):
             self.attn = Attention(
                 c.d_model, c.n_heads, c.resolved_head_dim, n_kv_heads=c.n_kv_heads,
                 qkv_bias=c.qkv_bias, qk_norm=c.qk_norm, rope=not c.is_encdec,
-                rope_base=c.rope_base, rope_pct=c.rope_pct, causal=causal,
+                rope_base=c.rope_base, rope_pct=c.rope_pct, mrope_sections=c.mrope_sections,
+                causal=causal,
                 window=c.window if block_type == "local_attn" else None, dtype=c.dtype)
         if block_type != "mamba2":
             self.norm2 = _norm(c, "norm2")
@@ -174,12 +188,6 @@ class Block(Module):
         return x + self._ffn(self.norm2(x), no_drop=True), {"attn": kv}
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    """0..S-1 for each row of tokens (B, S)."""
-    B, S = tokens.shape
-    return torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-
-
 def _zero_cache(group: list, batch: int, cap: int) -> AttentionCache:
     """Zeros (n, batch, cap, KVH, D) for the n layers of a group."""
     a = group[0].attn
@@ -214,13 +222,13 @@ def _ring(t: torch.Tensor, S: int, cap: int) -> torch.Tensor:
 
 class TransformerLM(Module):
     """Parameter tree ``{"embed", "final_norm", "lm_head", "blocks":
-    {"g0_dense": ...}}`` with stacked groups, as the reference's; with
+    {"g0_dense": ...}}`` with stacked groups, as the reference's, and an
+    enc-dec model's ``"encoder": {"blocks", "final_norm"}``; with
     ``tie_embeddings`` there is no ``lm_head`` and the logits go through the
     embedding table (``Embedding.attend``)."""
 
     def __init__(self, cfg: LMConfig):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         self.groups: list[tuple[str, int]] = []  # contiguous runs of one block type
         for t in cfg.block_types():
@@ -234,41 +242,89 @@ class TransformerLM(Module):
             self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype, name="lm_head")
         self.blocks = Module()
         for i, (t, n) in enumerate(self.groups):
-            self.blocks.add_module(f"g{i}_{t}", stack_params(Block(cfg, t, causal=True), n))
+            self.blocks.add_module(f"g{i}_{t}", stack_params(
+                Block(cfg, t, causal=True, with_cross=cfg.is_encdec), n))
+        if cfg.is_encdec:  # non-causal dense blocks, RoPE off
+            self.encoder = Module()
+            self.encoder.add_module("blocks", stack_params(Block(cfg, "dense", causal=False),
+                                                           cfg.encoder.n_layers))
+            self.encoder.add_module("final_norm", _norm(cfg, "final_norm"))
         self._views: tuple = (None, None)
 
-    def layers(self) -> list[list[Block]]:
-        """Each group's layers as views of their slices, rebuilt when the
-        parameters are replaced (a load) or their storage changes."""
-        groups = [getattr(self.blocks, f"g{i}_{t}") for i, (t, _) in enumerate(self.groups)]
-        key = tuple(p.data_ptr() for g in groups for p in g.parameters())
+    def _stacks(self) -> list[list[Block]]:
+        """Each stacked group's layers (the decoder's groups, then an
+        encoder's) as views of their slices, rebuilt when the parameters are
+        replaced (a load) or their storage changes."""
+        stacks = [(getattr(self.blocks, f"g{i}_{t}"), n) for i, (t, n) in enumerate(self.groups)]
+        if self.cfg.is_encdec:
+            stacks.append((self.encoder.blocks, self.cfg.encoder.n_layers))
+        key = tuple(p.data_ptr() for g, _ in stacks for p in g.parameters())
         if self._views[0] != key:
-            self._views = (key, [layer_views(g, n) for g, (_, n) in zip(groups, self.groups)])
+            self._views = (key, [layer_views(g, n) for g, n in stacks])
         return self._views[1]
 
-    def forward(self, tokens: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
-        """Full causal forward: tokens (B, S) -> logits (B, S, vocab)."""
-        x = self.embed(tokens)
-        positions = _positions(tokens)
+    def layers(self) -> list[list[Block]]:
+        """Each decoder group's layers, as views."""
+        return self._stacks()[:len(self.groups)]
+
+    def _inputs(self, tokens, embeds, mrope_positions):
+        """The first layer's input x (B, S, d) and the positions the layers
+        rotate at: token embeddings, or ``embeds`` in the config's dtype;
+        the M-RoPE streams (3, B, S) where given, else 0..S-1; an enc-dec
+        decoder adds the positions' sinusoidal embedding (no RoPE)."""
+        c = self.cfg
+        x = self.embed(tokens) if embeds is None else embeds.to(c.dtype)
+        B, S = x.shape[:2]
+        positions = mrope_positions
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        if c.is_encdec:
+            x = x + sinusoidal_embedding(positions, c.d_model).to(x.dtype)
+        return x, positions
+
+    def encode(self, enc_embeds: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+        """Precomputed frame embeddings (B, S_enc, d) (the stub frontend) ->
+        the context (B, S_enc, d): the encoder's non-causal blocks, each in
+        its ``enc{i}`` scope, then its final norm."""
+        if enc_embeds is None:
+            raise ValueError(f"{self.cfg.name}: the encoder needs enc_embeds (B, S_enc, d)")
+        x = enc_embeds
+        for i, layer in enumerate(self._stacks()[len(self.groups)]):
+            with tracer.scope(f"enc{i}"):
+                x = layer(x, impl=impl)
+        return self.encoder.final_norm(x)
+
+    def forward(self, tokens: torch.Tensor | None = None, *, embeds=None, enc_embeds=None,
+                mrope_positions=None, impl: str = "auto") -> torch.Tensor:
+        """Full forward: tokens (B, S) or ``embeds`` (B, S, d) -> logits (B,
+        S, vocab); causal self-attention, and in an enc-dec model
+        cross-attention to ``encode(enc_embeds)`` (in an ``encoder`` scope)."""
+        x, positions = self._inputs(tokens, embeds, mrope_positions)
+        context = None
+        if self.cfg.is_encdec:
+            with tracer.scope("encoder"):
+                context = self.encode(enc_embeds, impl=impl)
         for i, group in enumerate(self.layers()):
             for j, layer in enumerate(group):
                 with tracer.scope(self._scope(i, j)):
-                    x = layer(x, positions=positions, impl=impl)
+                    x = layer(x, positions=positions, context=context, impl=impl)
         return self._logits(self.final_norm(x))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.embed.attend(x) if self.cfg.tie_embeddings else self.lm_head(x)
 
-    def prefill(self, tokens: torch.Tensor, *, impl: str = "auto",
-                max_len: int | None = None):
-        """Process a prompt (B, S) -> (last-position logits (B, 1, vocab),
-        caches): each group's states, leaves stacked (n, B, ...).  Keys and
-        values are padded with zeros to ``cap = max_len`` (default S), or
-        cut to it, or in a local window laid out as its ring of ``min(window,
-        max_len)`` rows, as the reference's ``_to_capacity``."""
-        B, S = tokens.shape
-        x = self.embed(tokens)
-        positions = _positions(tokens)
+    def prefill(self, tokens: torch.Tensor | None = None, *, embeds=None, enc_embeds=None,
+                mrope_positions=None, impl: str = "auto", max_len: int | None = None):
+        """Process a prompt, tokens (B, S) or ``embeds`` (B, S, d) with
+        optional M-RoPE streams (3, B, S) -> (last-position logits (B, 1,
+        vocab), caches, context): each group's states, leaves stacked (n, B,
+        ...), and an enc-dec model's ``encode(enc_embeds)`` (else None).
+        Keys and values are padded with zeros to ``cap = max_len`` (default
+        S), or cut to it, or in a local window laid out as its ring of
+        ``min(window, max_len)`` rows, as the reference's ``_to_capacity``."""
+        x, positions = self._inputs(tokens, embeds, mrope_positions)
+        B, S = x.shape[:2]
+        context = self.encode(enc_embeds, impl=impl) if self.cfg.is_encdec else None
         caches = []
         for i, group in enumerate(self.layers()):
             t = group[0].block_type
@@ -280,7 +336,8 @@ class TransformerLM(Module):
             states = []
             for j, layer in enumerate(group):
                 with tracer.scope(self._scope(i, j)):
-                    x, st = layer(x, positions=positions, impl=impl, return_state=True)
+                    x, st = layer(x, positions=positions, context=context, impl=impl,
+                                  return_state=True)
                 st = st[key]
                 if kv is not None:  # written into the padded cache at once
                     kv.k[j, :, :min(S, cap)] = st.k[:, :cap]
@@ -295,7 +352,7 @@ class TransformerLM(Module):
         # the norm over every position, as the reference's (its event counts
         # them all); the last position's logits
         logits = self._logits(self.final_norm(x)[:, -1:])
-        return logits, caches
+        return logits, caches, context
 
     def init_cache(self, batch: int, max_len: int) -> list:
         """Zero decode states for ``max_len`` positions, one a group, each
@@ -303,17 +360,31 @@ class TransformerLM(Module):
         return [_zero_state(group, batch, max_len) for group in self.layers()]
 
     def decode_step(self, token: torch.Tensor, caches: list, cur_len: int, *,
-                    impl: str = "auto"):
-        """token (B, 1) at position ``cur_len`` -> (logits (B, 1, vocab),
-        caches), each layer's slice of the caches written in place."""
+                    context: torch.Tensor | None = None, impl: str = "auto"):
+        """token (B, 1), or embeddings (B, 1, d) with ``embed_inputs``, at
+        position ``cur_len`` -> (logits (B, 1, vocab), caches), each layer's
+        slice of the caches written in place.  An enc-dec model attends to
+        all of ``context`` (B, S_enc, d), each layer's cross K/V projected
+        from it in this step, as the reference's (whose ``cross_len``
+        argument reaches no layer, so the port's step has none)."""
         del impl  # decode attention is plain PyTorch on every tier
-        x = self.embed(token)
+        c = self.cfg
+        x = token.to(c.dtype) if c.embed_inputs and token.ndim == 3 else self.embed(token)
+        if c.is_encdec:
+            if context is None:
+                raise ValueError(f"{c.name}: an enc-dec decode step needs the context")
+            pos = torch.full((x.shape[0], 1), cur_len, dtype=torch.int32, device=x.device)
+            x = x + sinusoidal_embedding(pos, c.d_model).to(x.dtype)
         for i, (group, cache) in enumerate(zip(self.layers(), caches)):
             (key, stacked), = cache.items()
             for j, layer in enumerate(group):
-                with tracer.scope(self._scope(i, j)):
-                    x, st = layer.decode(x, {key: type(stacked)(*(a[j] for a in stacked))},
-                                         cur_len)
+                st = {key: type(stacked)(*(a[j] for a in stacked))}
+                if c.is_encdec:  # no layer scope, as the reference's unrolled enc-dec step
+                    x, st = layer.decode(x, st, cur_len,
+                                         cross_cache=layer.cross_attn.project_kv(context))
+                else:
+                    with tracer.scope(self._scope(i, j)):
+                        x, st = layer.decode(x, st, cur_len)
                 if key != "attn":  # a recurrent state: its new value into the slice
                     for a, new in zip(stacked, st[key]):
                         a[j].copy_(new)

@@ -19,6 +19,12 @@ reproduced: sampled tokens agree with it in distribution only.
 Characterization (``trace_events``) follows the paper's profile, as the
 reference's: a 2048-token prefill once, then decode steps at 4 sampled cache
 lengths, each scaled to its share of the 64 new tokens.
+
+The VLM (qwen2-vl-2b) runs these stages on token prompts, as the
+reference's does (three equal M-RoPE streams).  An enc-dec model (whisper)
+has no prompt for its encoder here: the stages carry no ``enc_embeds``, and
+its prefill raises, as the reference's fails; it runs through the model's
+own entry points (``launch/steps.py``).
 """
 
 from __future__ import annotations
@@ -104,10 +110,16 @@ class LMWorkload(GenerativeWorkload):
 
     def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
         if stage.name == "prefill":
+            if self.cfg.is_encdec:
+                raise ValueError(
+                    f"{self.cfg.name}: the LM workload's stages carry no enc_embeds, so an "
+                    "enc-dec model cannot prefill through them (the reference's fails there "
+                    "too); drive the model's encode / prefill(enc_embeds=) / "
+                    "decode_step(context=) (launch/steps.py)")
             toks = state["tokens"]
             B, S = toks.shape
             cap = S + int(state["max_new"].max())
-            logits, caches = params.prefill(toks, impl=impl, max_len=cap)
+            logits, caches, _ = params.prefill(toks, impl=impl, max_len=cap)
             gumbel = (self._gumbel(gens, 1, logits.shape[-1], toks.device)[:, 0]
                       if temperature > 0.0 else None)
             # decode starts at the prompt's end (the bucket's, on the lm

@@ -195,6 +195,13 @@ MOE_LM_ATTN_CASES = [(2, 2048, 2048, 32, 4, 128, 0)]
 # 3072-token prompt of its chip run (the last 1024 rows lose their early
 # keys, and whole key tiles are skipped)
 LOCAL_LM_ATTN_CASES = [(2, 3072, 3072, 16, 1, 256, 2048)]
+# The enc-dec and VLM calls at full width (B, Sq, Skv, H, KVH, D, causal):
+# whisper-base's encoder over 1500 frames (non-causal), its decoder's causal
+# self-attention over 187 tokens and its cross-attention from them to the
+# 1500 frames (no tile filled exactly, rows and keys masked at both tails);
+# qwen2-vl-2b's causal GQA 12:2, a group of 6
+ENCDEC_VLM_ATTN_CASES = [(2, 1500, 1500, 8, 8, 64, False), (2, 187, 187, 8, 8, 64, True),
+                         (2, 187, 1500, 8, 8, 64, False), (2, 2048, 2048, 12, 2, 128, True)]
 # One MoE layer at full width (d, E, f, k, n_shared, d_ff_shared) over 256
 # tokens at capacity 1.25: deepseek-moe-16b's and qwen3-moe-30b-a3b's
 MOE_CARD_WIDTHS = {"deepseek-moe-16b": (2048, 64, 1408, 6, 2, 2816),
@@ -588,6 +595,23 @@ def test_attention_cuda_local_window_prefill_matches_plain(h100, case, dtype):
     _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ENCDEC_VLM_ATTN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_attention_cuda_encdec_and_vlm_shapes_match_plain(h100, case, dtype):
+    """whisper-base's encoder, decoder and cross calls, and qwen2-vl-2b's
+    GQA prefill: the kernel against its plain version, one launch each."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    q, k, v = _on(h100, dtype, *_attn_inputs(case, seed=67))
+    kw = dict(scale=case[5] ** -0.5, causal=case[6])
+    n = build.launches["flash_attention"]
+    out = kernel.flash_attention(q, k, v, **kw)
+    assert build.launches["flash_attention"] == n + 1
+    gold = t_fa_ref.attention_ref(q, k, v, **kw)
+    _close(out.cpu(), gold.cpu(), F32 if dtype == torch.float32 else BF16)
+
+
 def _seeded(layer, seed):
     from repro_torch.nn import init_params, materialize
 
@@ -656,6 +680,62 @@ def test_rglru_block_at_full_width_on_the_card_matches_the_cpu(h100):
         step, st1 = card.step(x1.to(h100), st)
     for a, b in ((out, gold), (st.hidden, gst.hidden), (st.conv, gst.conv), (step, gstep),
                  (st1.hidden, gst1.hidden)):
+        _close_scaled_f32(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_mrope_on_the_card_matches_the_cpu(h100):
+    """qwen2-vl-2b's M-RoPE at full width (2 x 2048 tokens, 12 heads of 128,
+    sections (16, 24, 24), base 1e6) at an image prompt's three distinct
+    streams: the card against the CPU."""
+    from repro_torch.models.layers import rope
+
+    g = torch.Generator().manual_seed(71)
+    x = torch.randn((2, 2048, 12, 128), generator=g)
+    cell = torch.arange(1024)
+    tail = torch.arange(1008) + 48
+    pos = torch.stack([torch.cat([torch.arange(16), torch.full_like(cell, 16), tail]),
+                       torch.cat([torch.arange(16), 16 + cell // 32, tail]),
+                       torch.cat([torch.arange(16), 16 + cell % 32, tail])])
+    pos = pos[:, None].expand(3, 2, 2048).to(torch.int32)
+    gold = rope.apply_mrope(x, pos, (16, 24, 24), base=1e6)
+    out = rope.apply_mrope(x.to(h100), pos.to(h100), (16, 24, 24), base=1e6)
+    _close_scaled_f32(out.cpu(), gold)
+
+
+@pytest.mark.gpu
+def test_whisper_decoder_block_at_full_width_on_the_card_matches_the_cpu(h100):
+    """One whisper-base decoder block (d 512, 8 heads of 64, LayerNorm,
+    QKV bias, tanh-GELU MLP of 2048, cross-attention) over 187 tokens against
+    a context of 1500 frames, on the kernel tier, then one decode step with
+    the cross K/V projected from the context: the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers.attention import AttentionCache
+    from repro_torch.models.transformer import Block
+
+    cfg = get_config("whisper-base")
+    block = _seeded(Block(cfg, "dense", causal=True, with_cross=True), 73)
+    g = torch.Generator().manual_seed(74)
+    with torch.no_grad():  # biases and scales away from their init: none is trivial
+        for name, p in block.named_parameters():
+            if name.endswith(("bias", "scale")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g) + name.endswith("scale"))
+    x = torch.randn((2, 187, 512), generator=g)
+    ctx = torch.randn((2, 1500, 512), generator=g)
+    x1 = torch.randn((2, 1, 512), generator=g)
+    with torch.inference_mode():
+        gold, gkv = block(x, context=ctx, impl="kernel", return_state=True)
+        cache = AttentionCache(*(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 1))
+                                 for a in gkv["attn"]))
+        gstep, _ = block.decode(x1, {"attn": cache}, 187,
+                                cross_cache=block.cross_attn.project_kv(ctx))
+        card = block.to(h100)
+        out, kv = card(x.to(h100), context=ctx.to(h100), impl="kernel", return_state=True)
+        ccache = AttentionCache(*(torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 1))
+                                  for a in kv["attn"]))
+        step, _ = card.decode(x1.to(h100), {"attn": ccache}, 187,
+                              cross_cache=card.cross_attn.project_kv(ctx.to(h100)))
+    for a, b in ((out, gold), (kv["attn"].k, gkv["attn"].k), (step, gstep)):
         _close_scaled_f32(a.cpu(), b)
 
 

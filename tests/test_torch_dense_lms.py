@@ -244,7 +244,7 @@ def test_reduced_prefill_logits_match_jax(runs, arch):
                                                     impl="interpret", max_len=cap)
     _, model = _port(run, arch)
     with torch.inference_mode():
-        logits, caches = model.prefill(_t(run["tokens"]).long(), impl="kernel", max_len=cap)
+        logits, caches, _ = model.prefill(_t(run["tokens"]).long(), impl="kernel", max_len=cap)
     assert tuple(logits.shape) == (2, 1, 256)
     _close_to_scale(logits.numpy(), gold)
     _close_to_scale(caches[0]["attn"].k.numpy(), gold_caches[0]["attn"].k)

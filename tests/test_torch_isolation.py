@@ -52,14 +52,15 @@ def test_checked_files_include_the_ttv_slice():
                 "core/analytical.py", "core/profiler_analysis.py", "models/layers/moe.py",
                 "configs/deepseek_moe_16b.py", "configs/qwen3_moe_30b_a3b.py",
                 "models/layers/ssm.py", "models/layers/rglru.py", "configs/mamba2_780m.py",
-                "configs/recurrentgemma_9b.py"):
+                "configs/recurrentgemma_9b.py", "configs/whisper_base.py",
+                "configs/qwen2_vl_2b.py", "launch/steps.py"):
         assert port / rel in PORT_FILES
 
 
 @pytest.mark.parametrize("name,stage", [
     ("muse", "parallel_decode"), ("phenaki", "parallel_decode"), ("llama2-7b", "decode"),
     ("parti", "ar_decode"), ("deepseek-moe-16b", "decode"), ("mamba2-780m", "decode"),
-    ("recurrentgemma-9b", "decode")])
+    ("recurrentgemma-9b", "decode"), ("whisper-base", "decode"), ("qwen2-vl-2b", "decode")])
 def test_workload_builds_without_jax(name, stage):
     """A process that never imported ``jax`` or ``repro`` builds the
     full-size workload (on ``meta``: nothing is allocated)."""
@@ -70,6 +71,31 @@ def test_workload_builds_without_jax(name, stage):
         f"wl = workload_for(get_config({name!r}))\n"
         f"assert wl.cost_descriptor().stages[1].name == {stage!r}\n"
         "assert all(p.device.type == 'meta' for p in wl.model.parameters())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=300)
+
+
+def test_encdec_steps_run_without_jax():
+    """A process that never imported ``jax`` or ``repro`` runs reduced
+    whisper-base on the CPU through ``launch/steps.py``: the prefill on frame
+    embeddings and decoder tokens, then two serve steps against the
+    context."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.launch import steps\n"
+        "from repro_torch.workload import reduced_workload\n"
+        "wl = reduced_workload(get_config('whisper-base'))\n"
+        "model = wl.init(0, 'cpu')\n"
+        "batch = {'enc_embeds': torch.randn(2, 16, 64), 'tokens': torch.zeros(2, 5, dtype=torch.long)}\n"
+        "logits, caches, ctx = steps.make_prefill_step(model, wl.cfg, max_len=7)(batch)\n"
+        "serve = steps.make_serve_step(model, wl.cfg)\n"
+        "for cur in (5, 6):\n"
+        "    logits, caches = serve(logits[:, -1].argmax(-1)[:, None], caches, cur, context=ctx)\n"
+        "assert tuple(logits.shape) == (2, 1, 256) and bool(torch.isfinite(logits).all())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

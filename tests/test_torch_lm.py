@@ -224,7 +224,7 @@ def test_prefill_matches_jax(lm_run, tiers):
                                              impl=jax_impl, max_len=cap)
     _, model = _port_model(lm_run)
     with torch.inference_mode():
-        logits, caches = model.prefill(_t(toks).long(), impl=torch_impl, max_len=cap)
+        logits, caches, _ = model.prefill(_t(toks).long(), impl=torch_impl, max_len=cap)
     assert tuple(logits.shape) == (2, 1, 256)
     _close_to_scale(logits.numpy(), gold)
     assert len(caches) == len(gold_caches) == 1
@@ -242,7 +242,7 @@ def test_decode_step_matches_jax_at_three_positions(lm_run):
                                       max_len=cap)
     _, model = _port_model(lm_run)
     with torch.inference_mode():
-        _, caches = model.prefill(_t(toks).long(), max_len=cap)
+        _, caches, _ = model.prefill(_t(toks).long(), max_len=cap)
         nxt = np.random.default_rng(7).integers(0, 256, (3, 2, 1)).astype(np.int32)
         for i, cur in enumerate(range(PROMPT, PROMPT + 3)):
             gold, jcaches = jwl.model.decode_step(lm_run["params"], jnp.asarray(nxt[i]), jcaches,
@@ -262,7 +262,7 @@ def test_prefill_then_decode_equals_full_forward(lm_run):
     with torch.inference_mode():
         full = model(toks)
         _close_to_scale(full.numpy(), gold)
-        logits, caches = model.prefill(toks[:, :10], max_len=PROMPT)
+        logits, caches, _ = model.prefill(toks[:, :10], max_len=PROMPT)
         steps = [logits[:, 0]]
         for cur in range(10, PROMPT):
             logits, caches = model.decode_step(toks[:, cur:cur + 1], caches, cur)
@@ -343,15 +343,23 @@ def test_llama_config_matches_jax():
         j_reduced(j_get_config("llama2-7b")))
 
 
-def test_other_lm_families_wait_for_their_slice():
-    """Enc-dec (whisper-base), M-RoPE and embedding inputs (qwen2-vl-2b) are
-    refused until their slice ports them."""
-    for change in (dict(encoder=j_get_config("whisper-base").encoder),
-                   dict(embed_inputs=True),
-                   dict(mrope_sections=(2, 3, 3))):
-        cfg = dataclasses.replace(t_suite.LLAMA2_7B, **change)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            workload_for(cfg)
+def test_every_assigned_lm_family_is_ported():
+    """Each of the reference's ten ``ASSIGNED_ARCHS``, in its order, builds a
+    ``TransformerLM`` on ``meta`` whose leaves are the reference's defs', leaf
+    for leaf, with the reference's analytic ``param_count()``."""
+    from repro_torch import configs as t_configs
+    from repro.configs import ASSIGNED_ARCHS
+    from repro.models.transformer import TransformerLM as JTransformerLM
+    from repro_torch.models.transformer import TransformerLM
+
+    assert t_configs.ASSIGNED_ARCHS == ASSIGNED_ARCHS and len(ASSIGNED_ARCHS) == 10
+    for arch in ASSIGNED_ARCHS:
+        cfg, jcfg = get_config(arch), j_get_config(arch)
+        model = TransformerLM(cfg)
+        assert all(p.device.type == "meta" for p in model.parameters()), arch
+        j_shapes = {k: tuple(v.shape) for k, v in flatten_tree(JTransformerLM(jcfg).defs()).items()}
+        assert {k: d.shape for k, d in param_defs(model).items()} == j_shapes, arch
+        assert cfg.param_count() == jcfg.param_count(), arch
 
 
 @pytest.mark.parametrize("reduced_cfg", [False, True], ids=["full", "reduced"])

@@ -454,7 +454,7 @@ def test_reduced_prefill_logits_and_states_match_jax(runs, arch):
                             max_len=cap)
     _, model = _port(run, arch)
     with torch.inference_mode():
-        logits, caches = model.prefill(_t(run["tokens"]).long(), impl="kernel", max_len=cap)
+        logits, caches, _ = model.prefill(_t(run["tokens"]).long(), impl="kernel", max_len=cap)
     assert tuple(logits.shape) == (2, 1, 256)
     _close_to_scale(logits.numpy(), gold)
     assert [set(c) for c in caches] == [set(c) for c in gold_caches]
@@ -488,7 +488,7 @@ def test_prefill_then_decode_equals_full_forward(runs, arch):
     toks = _t(run["tokens"]).long()
     with torch.inference_mode():
         full = model(toks, impl="kernel")
-        last, caches = model.prefill(toks[:, :S0], impl="kernel", max_len=S0 + EXTRA)
+        last, caches, _ = model.prefill(toks[:, :S0], impl="kernel", max_len=S0 + EXTRA)
         errs = [(last[:, 0] - full[:, S0 - 1]).abs().max().item()]
         for i in range(EXTRA):
             lg, caches = model.decode_step(toks[:, S0 + i:S0 + i + 1], caches, S0 + i)
