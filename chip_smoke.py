@@ -3,8 +3,8 @@
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py olmo-1b fleet`` runs just the named paths and
 phase 8b, ``python3 chip_smoke.py whisper-base qwen2-vl-2b`` just the
-enc-dec and VLM paths, for a shorter call while a path is being brought
-up.)
+enc-dec and VLM paths, ``python3 chip_smoke.py train`` just phase 9, for a
+shorter call while a path is being brought up.)
 
 Seventeen paths, each at full published width with random weights from a
 seed, 2 requests each:
@@ -32,11 +32,11 @@ seed, 2 requests each:
   - the dense assigned LMs in fp32, as LLaMA but with 16 new tokens:
     olmo-1b (non-parametric LayerNorm, the tied head over a vocab of 50304),
     stablelm-3b (LayerNorm, 32 heads of 80 with 20 rotary dims) and glm4-9b
-    (GQA 32:2, QKV bias, a vocab of 151552) cut to 20 of its 40 layers
+    (GQA 32:2, QKV bias, a vocab of 151552) cut to 10 of its 40 layers
     (its 40 identical layers launch one attention call each at one shape,
-    so 20 keep every per-call shape, and the time saved funds the two
-    sub-quadratic paths).  qwen2-72b (291 GB in fp32) fits no single card
-    and waits for several;
+    so 10 keep every per-call shape, and the time saved funds the
+    sub-quadratic paths and phase 9).  qwen2-72b (291 GB in fp32) fits no
+    single card and waits for several;
   - the MoE assigned LMs in fp32, as the dense ones: deepseek-moe-16b at
     full depth (28 layers: a dense first layer, then 27 of 64 routed
     experts of 1408, top-6, and 2 shared; 16.4 B params, 65.5 GB) and
@@ -185,11 +185,46 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
                  mode in a subprocess (SD, 2 replicas, slo, preempt, 4
                  requests), its summary held to the schema
 
+  9. train    -- (``[train]`` lines, once after the paths) training on the
+                 kernel tier, whose ``torch.autograd.Function``s launch each
+                 hand kernel forward and pull the gradients back through its
+                 plain version: full-width Stable Diffusion (all 1025.8 M
+                 leaves; ``SyntheticTTIData`` 2 x 64x64x4 latents with 16
+                 text tokens, ``DiffusionPipeline.train_loss``, the trainer
+                 with AdamW lr 2e-4, warmup 50, weight decay 0.01, as
+                 ``examples/train_tti.py`` on the full config) and
+                 full-width olmo-1b (2 x 2048 tokens through
+                 ``python -m repro_torch.launch.train``'s ``main``).  For each:
+                 the train forward's kernel calls recorded; each call's
+                 Function gradients of a random cotangent against its plain
+                 version's autograd gradients (1e-4, widened for convs as in
+                 phase 4; plus a GQA and a windowed flash call), one launch
+                 in the forward and none in the backward; step 1 on the
+                 kernel tier against the torch tier on the same weights,
+                 batch and noise (loss and global gradient norm within 1e-3
+                 relative, each leaf's gradient within 1e-2 relative L2 --
+                 relative to the larger of its norm and 1e-6 of the global
+                 norm, since an attention key bias has an exact gradient of 0
+                 and only roundoff on both tiers -- and no leaf with a
+                 gradient on the torch tier without one on the kernel tier)
+                 launching exactly the forward's plan; the
+                 calls timed as in phase 4; then ``TRAIN_STEPS`` steps with
+                 finite losses and launches equal to the plan times the
+                 steps (counts set to 0 just before), each step's forward,
+                 backward and optimizer timed by CUDA events, the peak
+                 memory, and one step under ``torch.profiler`` (busy share).
+                 Last, a reduced Stable Diffusion and a reduced olmo-1b
+                 restart from a checkpoint: 4 steps in one run against 2, a
+                 checkpoint and 2 more, parameters equal bit for bit (or
+                 within 1e-6 relative, logged) under deterministic
+                 algorithms
+
 Each phase logs its wall time and the peak device memory it reached.  Phase
 2 logs the registers and spills of the flash-attention instances the paths
 use (``[ptxas]``, D = 40 to 256).  It
 prints a ``{"kernels": [...]}`` line (each kernel's launches and times
-summed over all paths' main runs), the card's name and power limit, and,
+summed over all paths' main runs, and the ``"<kernel> [train]"`` entries
+over phase 9's train runs), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``; before them, the script's wall
 time from start to the result (``[total]``).  Per-call details go to
 ``build/chip_smoke/``.  Without a CUDA device it exits non-zero and prints
@@ -205,6 +240,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -332,15 +368,19 @@ def ptxas_usage(log: str, family: str = "fa_kernel") -> dict:
     return out
 
 
-def time_ms(fn, min_total_ms: float = 40.0, max_reps: int = 50) -> float:
-    """Mean device time of ``fn`` over a run of launches (CUDA events)."""
+def time_ms(fn, min_total_ms: float = 10.0, max_reps: int = 50) -> float:
+    """Mean device time of ``fn`` over a run of launches (CUDA events): at
+    least 3, up to ``max_reps`` while they take under ``min_total_ms`` (a
+    call timed alone sets the count; with no floor, 3)."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    reps = max(3, min(max_reps, int(min_total_ms / max(start.elapsed_time(end), 1e-3))))
+    reps = 3
+    if min_total_ms > 0:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        reps = max(3, min(max_reps, int(min_total_ms / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -757,9 +797,10 @@ def breakdown(rows, passes):
                 conv_step_ms_by_stage_and_input_hw={k: dict(v) for k, v in conv_hw.items()})
 
 
-def summarize(paths):
+def summarize(paths, suffix: str = ""):
     """The ``{"kernels": [...]}`` entries: launches and times summed over
-    the main runs of the given paths, for each kernel they launch."""
+    the main runs of the given paths, for each kernel they launch (its name
+    followed by ``suffix``)."""
     out = []
     for name, (source, replaces) in SOURCES.items():
         rs = [r for p in paths.values() for r in p["rows"] if r["kernel"] == name]
@@ -767,7 +808,7 @@ def summarize(paths):
             continue
         tot = lambda k: sum(r["launches"] * r[k] for r in rs)  # noqa: E731
         out.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name + suffix, route="cuda", source=source, replaces=replaces,
             launches=sum(p["launches"].get(name, 0) for p in paths.values()),
             max_abs_err=max(r["max_abs_err"] for r in rs),
             ms=tot("ms"), device_ms=tot("device_ms"), plain_ms=tot("plain_ms"),
@@ -1212,8 +1253,9 @@ LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
 # 128 leaves the whole script room for the MoE and recurrent paths)
 PARTI_DECODE_STEPS = 128
 # The dense LMs in fp32 on one card and their layers there (None: all);
-# glm4-9b's 40 identical layers are cut to 20 to fund the recurrent paths
-DENSE_LMS = {"olmo-1b": None, "stablelm-3b": None, "glm4-9b": 20}
+# glm4-9b's 40 identical layers are cut to 10 to fund the recurrent paths
+# and phase 9
+DENSE_LMS = {"olmo-1b": None, "stablelm-3b": None, "glm4-9b": 10}
 DENSE_LM_NEW = 16  # new tokens of their main paths (LLaMA: 64)
 # The MoE LMs in fp32 and their layers on the card (None: all); qwen3's 48
 # identical MoE layers are cut to 12 (122 GB of fp32 weights)
@@ -2238,6 +2280,451 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: training (``[train]`` lines)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+GRAD_F32 = dict(rtol=1e-4, atol=1e-4)  # the repo's gradient tolerance (ROADMAP.md)
+TRAIN_LOSS_RTOL = 1e-3  # step 1, kernel tier against torch tier: the loss,
+TRAIN_GNORM_RTOL = 1e-3  # the global gradient norm,
+TRAIN_LEAF_REL_L2 = 1e-2  # and each leaf's gradient (relative L2)
+# A leaf's L2 error is relative to its gradient's norm, or to this share of
+# the global norm where its gradient is smaller: an attention key bias has
+# an exact gradient of 0 (softmax ignores a constant added to a row of
+# scores), so both tiers give it roundoff (1e-11 of the global norm), whose
+# relative difference says nothing.
+LEAF_FLOOR = 1e-6
+RESTART_RTOL = 1e-6  # a restart where the card is not bit-deterministic
+# the extra flash shapes of the gradient check: a GQA and a windowed call
+TRAIN_ATTN_EXTRA = [((2, 1024, 16, 128), (2, 1024, 4, 128), dict(causal=True)),
+                    ((2, 1024, 8, 64), (2, 1024, 8, 64), dict(causal=True, window=256))]
+
+
+class StepMarks:
+    """The trainer's ``mark`` hook: a CUDA event as each step's forward,
+    backward and optimizer begin and as it ends (``"done"``)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, name: str):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def steps(self) -> list[dict]:
+        """Device ms of each step's forward, backward and optimizer."""
+        torch.cuda.synchronize()
+        out, cur = [], collections.Counter()
+        for (name, ev), (nxt, ev2) in zip(self.marks, self.marks[1:]):
+            if name != "done":
+                cur[name] += ev.elapsed_time(ev2)
+            if nxt == "done":
+                out.append(dict(cur, total=sum(cur.values())))
+                cur = collections.Counter()
+        return out
+
+
+def step_split_text(steps: list[dict]) -> str:
+    def one(s):
+        return (f"{s['total']:.1f} ms (forward {s['forward']:.1f}, backward "
+                f"{s['backward']:.1f}, optimizer {s['optimizer']:.1f})")
+
+    later = {k: float(np.mean([s[k] for s in steps[1:]])) for k in steps[0]}
+    return f"step 1 {one(steps[0])}; steps 2-{len(steps)} mean {one(later)}"
+
+
+def _grad_fns(call):
+    """A recorded kernel call as ``(operands, kernel-tier fn, plain fn,
+    tolerance)``: the fn of each tier takes the operands; the kernel tier's
+    goes through the ``torch.autograd.Function``, the plain one is the
+    kernel's plain version under autograd (GroupNorm's two-pass ``ref``)."""
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.groupnorm_silu import ref as gn_ref
+
+    args = [_on_card(a) for a in call["args"]]
+    kw = {k: _on_card(v) for k, v in call["kw"].items()}
+    if call["name"] == "conv2d":
+        x, w = args
+        ops = [x, w, kw.get("gn_a"), kw.get("gn_b"), kw.get("bias"), kw.get("temb"),
+               kw.get("residual")]
+        static = dict(stride=kw.get("stride", 1), gn_silu=kw.get("gn_silu", True),
+                      silu=kw.get("silu", False), emit_stats=kw.get("emit_stats", False))
+        widen = max(1.0, math.sqrt(w.shape[0] * w.shape[1] * w.shape[2] / 64))
+
+        def conv(impl):
+            return lambda x, w, a, b, bias, temb, res: conv_ops.conv2d(
+                x, w, gn_affine=None if a is None else (a, b), bias=bias, temb=temb,
+                residual=res, impl=impl, **static)
+
+        return ops, conv("kernel"), conv("torch"), dict(
+            rtol=GRAD_F32["rtol"] * widen, atol=GRAD_F32["atol"] * widen)
+    if call["name"] == "flash_attention":
+        return (args, lambda q, k, v: fa_ops.attention(q, k, v, impl="kernel", **kw),
+                lambda q, k, v: fa_ops.attention(q, k, v, impl="torch", **kw), GRAD_F32)
+    return (args, lambda x, s, b: gn_ops.groupnorm_silu(x, s, b, impl="kernel", **kw),
+            lambda x, s, b: gn_ref.groupnorm_silu_ref(x, s, b, **kw), GRAD_F32)
+
+
+def check_kernel_grads(calls: list) -> list[dict]:
+    """Each kernel call's gradients of a random cotangent through its
+    ``Function`` (one launch, in the forward) against its plain version's
+    autograd gradients, for every operand."""
+    from repro_torch.kernels import build
+
+    out = []
+    for call in calls:
+        ops, kernel_fn, plain_fn, tol = _grad_fns(call)
+        label = call["name"] + " " + " ".join(
+            str(tuple(a.shape)) for a in call["args"] if isinstance(a, torch.Tensor))
+        grads = {}
+        for tier, fn in (("kernel", kernel_fn), ("plain", plain_fn)):
+            leaves = [None if o is None else o.detach().requires_grad_(True) for o in ops]
+            before = build.launches[call["name"]]
+            res = fn(*leaves)
+            res = res if isinstance(res, tuple) else (res,)
+            if build.launches[call["name"]] != before + (tier == "kernel"):
+                raise AssertionError(f"{label}: the {tier} tier launched "
+                                     f"{build.launches[call['name']] - before} kernels")
+            g = torch.Generator(device="cuda").manual_seed(SEED)  # one cotangent for both
+            cot = [torch.randn(r.shape, generator=g, device="cuda", dtype=r.dtype)
+                   * (1e-3 if i else 1.0) for i, r in enumerate(res)]  # stats get 1e-3
+            wrt = [t for t in leaves if t is not None]
+            after = build.launches[call["name"]]
+            grads[tier] = torch.autograd.grad(res, wrt, cot)
+            if build.launches[call["name"]] != after:
+                raise AssertionError(f"{label}: the backward launched a hand kernel")
+            del res, cot, leaves
+        err = 0.0
+        for i, (a, b) in enumerate(zip(grads["kernel"], grads["plain"])):
+            assert_close(f"{label} grad of operand {i}", a, b, tol)
+            err = max(err, max_err(a, b))
+        out.append(dict(kernel=call["name"], shape=label, max_abs_grad_err=err, tol=tol))
+        del grads, ops
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_grads(params: dict, loss_fn) -> tuple:
+    """(loss, {leaf: gradient or None})."""
+    loss = loss_fn()
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss.detach(), dict(zip(params, grads))
+
+
+def compare_tiers(name: str, params: dict, loss_of, plan: dict) -> dict:
+    """Step 1's loss and gradients on the kernel tier against the torch
+    tier on the same weights, batch and noise; the kernel tier's forward and
+    backward launch the forward's recorded plan and no more."""
+    from repro_torch.kernels import build
+    from repro_torch.training.optimizer import global_norm
+
+    build.launches.clear()
+    k_loss, k_grads = leaf_grads(params, loss_of("kernel"))
+    launches = dict(build.launches)
+    if launches != plan:
+        raise AssertionError(f"{name}: a train step launched {launches}, its forward's plan "
+                             f"is {plan} (the backward launches no hand kernel)")
+    t_loss, t_grads = leaf_grads(params, loss_of("torch"))
+    k_norm, t_norm = float(global_norm(k_grads)), float(global_norm(t_grads))
+    loss_rel = abs(float(k_loss) - float(t_loss)) / abs(float(t_loss))
+    norm_rel = abs(k_norm - t_norm) / t_norm
+    rels, missing, none = {}, [], 0
+    for key, g in t_grads.items():
+        if g is None or not bool(g.abs().max() > 0):
+            none += 1
+            continue
+        kg = k_grads[key]
+        if kg is None or not bool(kg.abs().max() > 0):
+            missing.append(key)
+            continue
+        gn = g.float().norm().item()
+        rels[key] = ((kg.float() - g.float()).norm().item() / max(gn, LEAF_FLOOR * t_norm),
+                     gn / t_norm)
+    worst = max(r for r, _ in rels.values())
+    log(f"[train] {name} step 1, the leaves whose gradients differ most (L2 error over the "
+        f"leaf's norm, floored at {LEAF_FLOOR:g} of the global norm; the leaf's norm over the "
+        f"global norm): " + "; ".join(
+            f"{k} {r:.2e} ({share:.2e})" for k, (r, share) in
+            sorted(rels.items(), key=lambda kv: -kv[1][0])[:8]))
+    log(f"[train] {name} step 1, kernel vs torch tier: loss {float(k_loss):.6f} vs "
+        f"{float(t_loss):.6f} (relative {loss_rel:.2e}), global grad norm {k_norm:.6f} vs "
+        f"{t_norm:.6f} (relative {norm_rel:.2e}), largest leaf relative L2 {worst:.2e} over "
+        f"{len(t_grads) - none} leaves with a gradient ({none} without: zero, as "
+        f"value_and_grad gives them); launches {launches}")
+    if missing or loss_rel > TRAIN_LOSS_RTOL or norm_rel > TRAIN_GNORM_RTOL or (
+            worst > TRAIN_LEAF_REL_L2):
+        raise AssertionError(f"{name}: the tiers disagree at step 1 (missing {missing[:5]})")
+    del k_grads, t_grads
+    torch.cuda.empty_cache()
+    return dict(loss_kernel=float(k_loss), loss_torch=float(t_loss), loss_rel=loss_rel,
+                grad_norm_kernel=k_norm, grad_norm_torch=t_norm, grad_norm_rel=norm_rel,
+                leaf_rel_l2_max=worst, leaves_without_grad=none, launches=launches)
+
+
+def record_train_forward(loss_fn) -> Recorder:
+    """The kernel calls of one train forward (no graph recorded)."""
+    rec = Recorder()
+    rec.stage = "train"
+    with recording(rec), torch.no_grad():
+        loss_fn()
+        torch.cuda.synchronize()
+    return rec
+
+
+def plan_of(rec: Recorder) -> dict:
+    plan = collections.Counter()
+    for call in rec.calls.values():
+        plan[call["name"]] += call["counts"]["train"]
+    return dict(plan)
+
+
+def profile_step(step) -> dict:
+    """One train step under ``torch.profiler``, after one timed on the host
+    clock (its window; the steps before warmed it up): the card's busy ms
+    and share, launches and the kernels that take most of it.  (A step
+    launches ~30k kernels: the device's activity alone is traced, since the
+    host's ops and ``profile_passes``' per-category and per-scope readings
+    would take longer than the steps.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import profiler_analysis as pa
+
+    window_ms = host_ms(step, rounds=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    hist = pa.op_histogram(prof)
+    return dict(pa.busy(prof, window_ms), top_ms={k: v["ms"] for k, v in list(hist.items())[:6]})
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms (a warning where an op
+    has none), restored after."""
+    prev = torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1])
+
+
+def restart_check(name: str, make_model, loss_of, source, ckpt_root: Path) -> dict:
+    """A reduced model on the card: 4 steps in one run against 2 steps, a
+    checkpoint, and a restart for 2 more (the runner restores the step-2
+    checkpoint); the parameters must be equal, bit for bit where the card
+    computes deterministically, else within ``RESTART_RTOL``."""
+    from repro_torch.training import AdamWConfig, TrainConfig, train
+
+    def run(tag, steps, every):
+        model = make_model()
+        cfg = TrainConfig(total_steps=steps, checkpoint_dir=str(ckpt_root / f"{name}-{tag}"),
+                          checkpoint_every=every, log_every=10 ** 9,
+                          opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4))
+        _, hist = train(model, lambda b, g: loss_of(model, b, g), source, cfg, device="cuda",
+                        log=lambda *_: None)
+        return model, hist
+
+    with deterministic():
+        whole, h_whole = run("whole", 4, 100)
+        _, h_first = run("split", 2, 2)
+        resumed, h_rest = run("split", 4, 2)
+    a, b = whole.state_dict(), resumed.state_dict()
+    bitwise = all(torch.equal(a[k], b[k]) for k in a)
+    worst = max(max_err(b[k], a[k]) / max(a[k].abs().max().item(), 1e-30) for k in a)
+    log(f"[train] restart, reduced {name}: 4 steps in one run vs 2 + checkpoint + restart for "
+        f"2 (losses {[round(x, 6) for x in h_whole]} vs "
+        f"{[round(x, 6) for x in h_first + h_rest]}): parameters "
+        + ("equal bit for bit" if bitwise else f"not bitwise, largest relative diff {worst:.2e}")
+        + " (deterministic cuDNN and PyTorch algorithms)")
+    if not bitwise and worst > RESTART_RTOL:
+        raise AssertionError(f"{name}: a restart diverged from the uninterrupted run: {worst}")
+    return dict(bitwise=bitwise, max_rel_diff=worst, losses=h_whole,
+                losses_restarted=h_first + h_rest)
+
+
+def train_path(name, model, loss_of, params, *, smi: str) -> tuple:
+    """The shared part of a full-width train path: record the forward's
+    kernel calls, check each call's Function gradients, compare step 1 on
+    the two tiers, and time the calls (phase 4's ``check_kernels``, weighted
+    by ``TRAIN_STEPS``)."""
+    with phase(name, "train record + grads"):
+        rec = record_train_forward(loss_of("kernel"))
+        plan = plan_of(rec)
+        log(f"[train] {name}: {len(rec.calls)} distinct kernel calls a forward, plan {plan}")
+        grads = check_kernel_grads(list(rec.calls.values()))
+        log(f"[train] {name}: every Function's gradients equal the plain version's over "
+            f"{len(grads)} calls (largest max abs err "
+            f"{max(g['max_abs_grad_err'] for g in grads):.3e}); each launched once, in the "
+            f"forward")
+    with phase(name, "train tiers"):
+        tiers = compare_tiers(name, params, loss_of, plan)
+    with phase(name, "train kernels"):
+        rows = check_kernels(rec, {"train": TRAIN_STEPS}, {"train": 1})
+        (OUT_DIR / f"kernel_calls_train_{name}.json").write_text(
+            json.dumps(dict(device=smi, rows=rows), indent=1))
+    del rec
+    torch.cuda.empty_cache()
+    return plan, tiers, rows
+
+
+def timed_train(name: str, what: str, plan: dict, run) -> tuple:
+    """``run(marks) -> (losses, step)``: ``TRAIN_STEPS`` steps with
+    the launch counts set to 0 just before and read just after (they must be
+    the forward's plan times the steps, and the losses finite), each step's
+    forward, backward and optimizer timed by CUDA events, the peak memory;
+    then ``step()``, one more, under ``torch.profiler``."""
+    from repro_torch.kernels import build
+
+    marks = StepMarks()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    hist, step = run(marks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = marks.steps()
+    expected = {k: v * TRAIN_STEPS for k, v in plan.items()}
+    log(f"[train] {name} ({what}): {TRAIN_STEPS} steps in {wall:.2f} s, losses "
+        f"{[round(x, 5) for x in hist]}; {step_split_text(steps)}; peak {peak:.2f} GiB; "
+        f"launches {launches} (plan x {TRAIN_STEPS}: {expected})")
+    if launches != expected or not all(map(math.isfinite, hist)):
+        raise AssertionError(f"{name}: train launches {launches} != {expected} or a loss is "
+                             f"not finite: {hist}")
+    prof = profile_step(step)
+    log(f"[train] {name} one step under torch.profiler: window {prof['window_ms']:.1f} ms, card "
+        f"busy {prof['busy_ms']:.1f} ms (busy share {1 - prof['idle_share']:.3f}), "
+        f"{prof['launches']:.0f} launches; most device time (ms): "
+        + "; ".join(f"{k[:80]} {v:.2f}" for k, v in prof["top_ms"].items()))
+    return dict(steps_ms=steps, losses=hist, wall_s=wall, peak_gib=peak, launches=launches,
+                profile=prof)
+
+
+def run_train(*, smi: str) -> dict:
+    """Phase 9: full-width Stable Diffusion (``train_loss`` through the
+    trainer, as ``examples/train_tti.py`` on the full config) and olmo-1b
+    (through ``launch/train.py``) train ``TRAIN_STEPS`` steps on the kernel
+    tier, after the gradient checks and step 1 against the torch tier; then
+    the reduced restart checks."""
+    import tempfile
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.suite import STABLE_DIFFUSION
+    from repro_torch.data import SyntheticLMData, SyntheticTTIData
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.nn import init_module, trainable
+    from repro_torch.training import AdamWConfig, TrainConfig, train
+    from repro_torch.training.trainer import make_accumulating_step, step_generator
+    from repro_torch.workload import reduced_workload, workload_for
+
+    ckpt_root = Path(tempfile.mkdtemp(prefix="train-", dir=OUT_DIR))
+    summary, rows, launches = {}, [], collections.Counter()
+
+    # -- Stable Diffusion, as examples/train_tti.py on the full config ---------
+    cfg = STABLE_DIFFUSION
+    with phase(cfg.name, "train init"):
+        model = workload_for(cfg).init(SEED, "cuda")
+        params = trainable(model)
+    data = SyntheticTTIData(latent_hw=cfg.latent_size, latent_ch=cfg.unet.in_channels,
+                            text_vocab=cfg.text.vocab, text_len=min(cfg.text.max_len, 16),
+                            global_batch=2)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    t, eps = model.train_noise(tuple(batch["latents"].shape), step_generator(SEED, 0))
+    plan, tiers, sd_rows = train_path(
+        cfg.name, model, lambda impl: lambda: model.denoise_loss(batch, t, eps, impl=impl),
+        params, smi=smi)
+    rows += sd_rows
+    opt = AdamWConfig(lr=2e-4, warmup_steps=50, total_steps=TRAIN_STEPS, weight_decay=0.01)
+
+    def run_sd(marks):
+        tcfg = TrainConfig(total_steps=TRAIN_STEPS, log_every=1, checkpoint_every=10 ** 9,
+                           checkpoint_dir=str(ckpt_root / cfg.name), opt=opt, seed=SEED)
+        state, hist = train(model, lambda b, g: model.train_loss(b, g), data, tcfg,
+                            device="cuda", mark=marks,
+                            log=lambda s: log(f"[train] {cfg.name} {s}"))
+        step = make_accumulating_step(lambda b, g: model.train_loss(b, g), opt, 1)
+        return hist, lambda: step(params, state["opt"], batch, SEED, TRAIN_STEPS)
+
+    with phase(cfg.name, "train steps"):
+        summary[cfg.name] = dict(plan=plan, tiers=tiers, **timed_train(
+            cfg.name, f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M params, all "
+            f"trained; 2 x 64x64x4 latents, 16 text tokens", plan, run_sd))
+    launches.update(summary[cfg.name]["launches"])
+    del model, params, batch, run_sd
+    torch.cuda.empty_cache()
+
+    # -- olmo-1b through launch/train.py ---------------------------------------
+    cfg = get_config("olmo-1b")
+    with phase(cfg.name, "train init"):
+        model = init_module(TransformerLM(cfg), SEED, "cuda")
+        params = trainable(model)
+    lm_data = SyntheticLMData(vocab=cfg.vocab, seq_len=2048, global_batch=2)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in lm_data.batch_at(0).items()}
+    plan, tiers, lm_rows = train_path(
+        cfg.name, model, lambda impl: lambda: model.loss(batch, impl=impl), params, smi=smi)
+    rows += lm_rows
+    with phase(cfg.name, "train extra grads"):
+        extra = []
+        for q_shape, kv_shape, kw in TRAIN_ATTN_EXTRA:
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            q, k, v = (torch.randn(s, generator=g, device="cuda")
+                       for s in (q_shape, kv_shape, kv_shape))
+            extra.append(dict(name="flash_attention", args=[q, k, v],
+                              kw=dict(kw, scale=q_shape[-1] ** -0.5)))
+        for r in check_kernel_grads(extra):
+            log(f"[train] flash attention Function grads {r['shape']}: max abs err "
+                f"{r['max_abs_grad_err']:.3e}")
+    del model, params, batch, extra
+    torch.cuda.empty_cache()
+
+    def run_olmo(marks):
+        model, state, hist = train_launcher.main(
+            ["--arch", cfg.name, "--batch", "2", "--seq", "2048", "--steps", str(TRAIN_STEPS),
+             "--ckpt-dir", str(ckpt_root / cfg.name)], mark=marks,
+            log=lambda s: log(f"[train] {cfg.name} {s}"))
+        params = trainable(model)
+        b = {k: torch.from_numpy(v).cuda() for k, v in lm_data.batch_at(TRAIN_STEPS).items()}
+        step = make_accumulating_step(lambda b, g: model.loss(b),
+                                      AdamWConfig(lr=1e-3, total_steps=TRAIN_STEPS), 1)
+        return hist, lambda: step(params, state["opt"], b, 0, TRAIN_STEPS)
+
+    with phase(cfg.name, "train steps"):
+        summary[cfg.name] = dict(plan=plan, tiers=tiers, **timed_train(
+            cfg.name, "through launch/train.py, with its init; 2 x 2048 tokens", plan,
+            run_olmo))
+    launches.update(summary[cfg.name]["launches"])
+    torch.cuda.empty_cache()
+
+    # -- restart from a checkpoint, reduced -------------------------------------
+    with phase("reduced", "train restart"):
+        sd_wl = reduced_workload(STABLE_DIFFUSION)
+        sd = sd_wl.cfg
+        summary["restart"] = {
+            "stable-diffusion": restart_check(
+                "stable-diffusion", lambda: sd_wl.init(SEED, "cuda"),
+                lambda m, b, g: m.train_loss(b, g),
+                SyntheticTTIData(latent_hw=sd.latent_size, latent_ch=sd.unet.in_channels,
+                                 text_vocab=sd.text.vocab, text_len=min(sd.text.max_len, 16),
+                                 global_batch=2), ckpt_root),
+            "olmo-1b": restart_check(
+                "olmo-1b", lambda: init_module(TransformerLM(reduced(cfg)), SEED, "cuda"),
+                lambda m, b, g: m.loss(b),
+                SyntheticLMData(vocab=reduced(cfg).vocab, seq_len=64, global_batch=2),
+                ckpt_root)}
+    shutil.rmtree(ckpt_root)
+    return dict(rows=rows, launches=dict(launches), summary=summary)
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
 
@@ -2323,7 +2810,7 @@ def main(only=()) -> int:
         runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
             run_path(cfg, tag=f"main-{cfg.name}", record_steps=1, smi=smi,
                      kernels=("flash_attention",), max_new=DENSE_LM_NEW))
-    # the MoE LMs in fp32, as the dense ones; qwen3 cut to MOE_LMS's layers
+    # the MoE LMs in fp32, as the dense ones, cut to MOE_LMS's layers
     for arch, layers in MOE_LMS.items():
         cfg = get_config(arch)
         runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
@@ -2341,13 +2828,19 @@ def main(only=()) -> int:
         get_config("qwen2-vl-2b"), tag="main-qwen2-vl-2b", record_steps=1, smi=smi,
         kernels=("flash_attention",), max_new=DENSE_LM_NEW, extra=("mrope", mrope_phase))
     runs["whisper-base"] = lambda: run_encdec_path(get_config("whisper-base"), smi=smi)
+    # phase 9: training, full-width SD and olmo-1b, then the reduced restarts
+    runs["train"] = lambda: run_train(smi=smi)
     unknown = set(only) - set(runs) - {"fleet"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")
     paths = {name: run() for name, run in runs.items() if not only or name in only}
+    trained = paths.pop("train", None)
     kernels = summarize(paths)
+    if trained is not None:
+        kernels += summarize({"train": trained}, suffix=" [train]")
     paths_s = time.perf_counter() - t_all
-    log(f"[total] {len(paths)} paths in {paths_s:.1f} s")
+    log(f"[total] {len(paths)} paths" + ("" if trained is None else " and training")
+        + f" in {paths_s:.1f} s")
     # -- 8b. fleet serving --------------------------------------------------------
     fleet = None
     if not only or "fleet" in only:
@@ -2355,6 +2848,7 @@ def main(only=()) -> int:
             fleet = serve_fleet()
     summary = dict(device=smi, kind=kind, paths_s=paths_s, sass_mma=mma,
                    paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels,
+                   train=None if trained is None else trained["summary"],
                    characterize={k: v["summary"]["characterize"] for k, v in paths.items()},
                    fleet=fleet, wall_s=time.perf_counter() - T_START)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

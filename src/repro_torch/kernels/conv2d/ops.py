@@ -13,6 +13,19 @@ conventional permute -> conv1d -> permute of ``ref.temporal_conv1d_ref``.
 feeds a conv into the per-(batch, channel) affine the fused kernel applies
 to its input; they are plain PyTorch outside any kernel, as in the
 reference.
+
+Gradients: where autograd needs one (grad enabled and an operand that
+requires it), the ``kernel`` tier runs the fused conv through
+``Conv2dFn``, the counterpart of the reference's ``custom_vjp``
+(``_conv2d_fused`` / ``_conv2d_bwd``): the forward launches the kernel, the
+backward is the VJP of ``ref.conv2d_ref`` recomputed from the saved
+operands, for every operand (``x``, ``w``, ``gn_a``, ``gn_b``, ``bias``,
+``temb``, ``residual``) and from the cotangents of both outputs when
+``emit_stats`` returns ``(y, stats)``.  The forward runs outside autograd,
+as the CUDA kernel does, also on a CPU tensor (its plain version): a
+gradient the backward failed to give is missing on the CPU too.  The
+``torch`` tier is plain autograd through ``ref.conv2d_ref``.  The temporal
+conv has no ``Function`` yet: only the TTV losses reach it in training.
 """
 
 from __future__ import annotations
@@ -22,8 +35,9 @@ import torch
 from repro_torch.kernels.conv2d import conv2d as _kernel
 from repro_torch.kernels.conv2d import ref as _ref
 from repro_torch.kernels.tiers import is_fused, resolve_model_impl
+from repro_torch.kernels.vjp import needs_grad, plain_vjp
 
-__all__ = ["affine_from_stats", "conv2d", "groupnorm_affine", "is_fused",
+__all__ = ["Conv2dFn", "affine_from_stats", "conv2d", "groupnorm_affine", "is_fused",
            "resolve_model_impl", "temporal_conv1d"]
 
 
@@ -58,6 +72,33 @@ def affine_from_stats(stats, scale, bias, *, groups: int, count: int, eps: float
     return _affine_from_moments(mean, var, scale, bias, cpg=cpg, eps=eps)
 
 
+def _call(fn, static: tuple, *ops):
+    """``fn`` (the kernel's wrapper or ``ref.conv2d_ref``) on the operands
+    (x, w, gn_a, gn_b, bias, temb, residual) and ``static`` (stride,
+    gn_silu, silu, emit_stats)."""
+    stride, gn_silu, silu, emit_stats = static
+    x, w, gn_a, gn_b, bias, temb, residual = ops
+    return fn(x, w, stride=stride, gn_a=gn_a, gn_b=gn_b, gn_silu=gn_silu, bias=bias,
+              temb=temb, silu=silu, residual=residual, emit_stats=emit_stats)
+
+
+class Conv2dFn(torch.autograd.Function):
+    """The fused conv with its gradient: the kernel forward, the VJP of
+    ``ref.conv2d_ref`` backward (``static``: stride, gn_silu, silu,
+    emit_stats)."""
+
+    @staticmethod
+    def forward(ctx, static, *ops):
+        ctx.static = static
+        ctx.save_for_backward(*ops)
+        return _call(_kernel.conv2d, static, *ops)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        return (None, *plain_vjp(lambda *o: _call(_ref.conv2d_ref, ctx.static, *o),
+                                 ctx.saved_tensors, cotangents, ctx.needs_input_grad[1:]))
+
+
 def conv2d(
     x: torch.Tensor,  # (B, H, W, C_in)
     w: torch.Tensor,  # (K, K, C_in, C_out)
@@ -74,9 +115,13 @@ def conv2d(
 ):
     """Fused NHWC Conv2D: ``y`` or ``(y, stats)`` when ``emit_stats``."""
     gn_a, gn_b = gn_affine if gn_affine is not None else (None, None)
-    fn = _kernel.conv2d if resolve_model_impl(impl) == "kernel" else _ref.conv2d_ref
-    return fn(x, w, stride=stride, gn_a=gn_a, gn_b=gn_b, gn_silu=gn_silu, bias=bias,
-              temb=temb, silu=silu, residual=residual, emit_stats=emit_stats)
+    ops = (x, w, gn_a, gn_b, bias, temb, residual)
+    static = (stride, gn_silu, silu, emit_stats)
+    if resolve_model_impl(impl) != "kernel":
+        return _call(_ref.conv2d_ref, static, *ops)
+    if needs_grad(*ops):
+        return Conv2dFn.apply(static, *ops)
+    return _call(_kernel.conv2d, static, *ops)
 
 
 def temporal_conv1d(

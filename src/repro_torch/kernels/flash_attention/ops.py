@@ -18,6 +18,15 @@ the ``torch`` tier the conventional permute to (B*HW, F, H, D), attention
 and permute back (``ref.temporal_attention_ref``), as the reference's
 ``ops.temporal_attention``.  The kernel masks its ragged spatial tail
 itself, so the TPU dispatcher's padding of HW has no counterpart.
+
+Gradients: where autograd needs one, the ``kernel`` tier of ``attention``
+runs through ``FlashAttentionFn``: the kernel forward, and for q, k and v
+the VJP of ``ref.attention_ref`` recomputed from the saved inputs (GQA,
+``causal``, ``window`` and ``kv_offset`` included).  The reference's
+Pallas kernel has no VJP; it is differentiated through its plain tiers, so
+the port's gradient is the function's, as there.  The forward runs outside
+autograd on every device (``kernels.vjp``).  ``temporal_attention`` has no
+``Function`` yet: only the TTV losses reach it in training.
 """
 
 from __future__ import annotations
@@ -27,6 +36,29 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 from repro_torch.kernels.tiers import resolve_model_impl
+from repro_torch.kernels.vjp import needs_grad, plain_vjp
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient (``static``: causal, window,
+    scale, kv_offset): the kernel forward, the VJP of
+    ``ref.attention_ref`` backward."""
+
+    @staticmethod
+    def forward(ctx, static, q, k, v):
+        ctx.static = static
+        ctx.save_for_backward(q, k, v)
+        causal, window, scale, kv_offset = static
+        return _kernel.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                       kv_offset=kv_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, scale, kv_offset = ctx.static
+        return (None, *plain_vjp(
+            lambda q, k, v: _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                               scale=scale, kv_offset=kv_offset),
+            ctx.saved_tensors, (g,), ctx.needs_input_grad[1:]))
 
 
 def attention(
@@ -41,8 +73,13 @@ def attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    fn = _kernel.flash_attention if resolve_model_impl(impl) == "kernel" else _ref.attention_ref
-    return fn(q, k, v, causal=causal, window=window, scale=scale, kv_offset=kv_offset)
+    if resolve_model_impl(impl) != "kernel":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                  kv_offset=kv_offset)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply((causal, window, scale, kv_offset), q, k, v)
+    return _kernel.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                   kv_offset=kv_offset)
 
 
 def decode_attention(

@@ -13,8 +13,16 @@ reference: the LM workload's stages carry no encoder input.
 as ``meta`` tensors: token ids; embeddings with (3, B, S) M-RoPE streams
 (the VLM's stub frontend); frame embeddings with ``dec_len_for`` decoder
 tokens (enc-dec); one new token or embedding for decode, with the context
-an enc-dec step attends to.  The shardings, ``make_train_step`` and the
-cache shardings come with the multi-GPU and training slices.
+an enc-dec step attends to.
+
+    step = make_train_step(model, cfg, microbatches=2)
+    params, opt_state, metrics = step(params, opt_state, batch)
+
+``make_train_step`` is the reference's without a mesh: the model's loss on
+its default ``impl="blocked_jax"`` (the port's ``torch`` tier) and
+``remat="dots"``, gradients accumulated in fp32 over ``microbatches``,
+then AdamW.  ``params`` are the model's own leaves (``nn.trainable``),
+updated in place.  The shardings come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 
 from repro_torch.configs.base import LMConfig, ShapeSpec
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.training.optimizer import AdamWConfig, adamw_update
+from repro_torch.training.trainer import accumulate_grads, split_microbatches
 
 
 def dec_len_for(cfg: LMConfig, seq_len: int) -> int:
@@ -89,3 +99,23 @@ def make_serve_step(model: TransformerLM, cfg: LMConfig, *, impl: str = "auto"):
         return model.decode_step(token, caches, cur_len, context=context, impl=impl)
 
     return serve_step
+
+
+def make_train_step(model: TransformerLM, cfg: LMConfig, *, remat: str = "dots",
+                    impl: str = "blocked_jax", opt_cfg: AdamWConfig = AdamWConfig(),
+                    microbatches: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradients over ``microbatches`` slices of
+    the batch (axis 0, axis 1 of ``mrope_positions``), averaged in fp32,
+    then ``adamw_update``."""
+    del cfg  # the model holds its config
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        loss, grads = accumulate_grads(
+            lambda i, mb: model.loss(mb, impl=impl, remat=remat), params,
+            split_microbatches(batch, microbatches, {"mrope_positions": 1}))
+        params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step

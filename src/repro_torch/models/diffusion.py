@@ -9,7 +9,13 @@ the DDIM schedule and the two pipeline variants,
 
 The loop is a Python loop over DDIM steps.  Under an active trace it runs
 one step and scales that step's events by the step count (every step runs
-the same graph), as the reference's ``ddim_range`` does."""
+the same graph), as the reference's ``ddim_range`` does.
+
+``DiffusionPipeline.train_loss`` is the reference's denoising loss on the
+base UNet.  It draws ``t`` and ``eps`` from a ``torch.Generator`` on the
+CPU (``train_noise``: the same draws on every device) where the reference
+splits a ``PRNGKey``; ``denoise_loss`` takes them as given, so a test can
+hand in the reference's own draws."""
 
 from __future__ import annotations
 
@@ -116,6 +122,35 @@ class DiffusionPipeline(Module):
     @property
     def sr_unets(self) -> list:
         return [getattr(self, f"sr{i}") for i in range(len(self.cfg.sr_stages))]
+
+    def train_noise(self, shape: tuple, gen: torch.Generator) -> tuple:
+        """``(t, eps)`` for latents of ``shape`` (B, h, w, C): timesteps
+        uniform in [0, 1000) and standard normal noise, in fp32, drawn on the
+        CPU from ``gen``."""
+        t = torch.randint(0, 1000, (shape[0],), generator=gen)
+        return t, torch.randn(shape, generator=gen, dtype=torch.float32)
+
+    def train_loss(self, batch: dict, gen: torch.Generator, *, impl="auto") -> torch.Tensor:
+        """Denoising loss on the base UNet of ``batch``: ``{"latents": (B,
+        h, w, C), "text": (B, L)}`` (latents from the frozen VAE encoder in the
+        data pipeline, or 64x64 pixels for a pixel model), noise from
+        ``gen``."""
+        t, eps = self.train_noise(tuple(batch["latents"].shape), gen)
+        return self.denoise_loss(batch, t, eps, impl=impl)
+
+    def denoise_loss(self, batch: dict, t, eps, *, impl="auto") -> torch.Tensor:
+        """The reference's formula for given ``t`` (B,) and ``eps``:
+        ``x_t = sqrt(a_t) z0 + sqrt(1 - a_t) eps``, the text encoder, the
+        UNet in the config's dtype, then the fp32 mean squared error of its
+        noise prediction."""
+        z0 = torch.as_tensor(batch["latents"]).float()
+        dev = z0.device
+        t, eps = torch.as_tensor(t).to(dev).long(), torch.as_tensor(eps).to(dev).float()
+        a_t = ddpm_alphas(device=dev)[t][:, None, None, None]
+        x_t = torch.sqrt(a_t) * z0 + torch.sqrt(1.0 - a_t) * eps
+        ctx = self.text(torch.as_tensor(batch["text"], device=dev), impl=impl)
+        pred = self.unet(x_t.to(self.cfg.unet.dtype), t.float(), ctx, impl=impl)
+        return torch.mean((pred.float() - eps) ** 2)
 
     def encode_text(self, tokens, *, impl="auto"):
         return self.text(tokens, impl=impl)

@@ -12,7 +12,8 @@ layer of a block type:
     context, then the plain or gated MLP, or in a ``"moe"`` block the MoE
     FFN (key ``moe``).  A ``"moe"`` block's forward (the prefill) drops
     assignments past capacity, as the reference's; its decode runs with
-    ``no_drop``; the auxiliary loss is dropped in both, as there.
+    ``no_drop``; the auxiliary loss is dropped in both, as there, and
+    summed over the layers by ``TransformerLM.forward_train``.
   - ``"mamba2"``: the Mamba-2 mixer (key ``mixer``), no MLP.
   - ``"rglru"``: the Griffin recurrent block (key ``rglru``), then the MLP.
 
@@ -38,11 +39,21 @@ does.  The VLM (``embed_inputs``, ``mrope_sections``) takes embeddings
 (B, S, d) with (3, B, S) M-RoPE streams, or token ids (three equal
 streams); its ``decode_step`` takes (B, 1, d) embeddings or (B, 1) tokens.
 
+``TransformerLM.loss`` is the reference's training loss: the masked NLL of
+the labels (labels < 0 masked) plus the MoE layers' auxiliary losses, from
+``forward_train`` (the reference's ``forward``: logits and the summed
+auxiliary loss), each layer optionally rematerialized (``remat``:
+``none``, ``dots`` saving the matmul outputs, ``full`` saving nothing),
+which changes memory only.
+
 The LM keeps the reference's scanned parameter layout: each run of
 identical blocks is one group ``blocks.g{i}_{type}`` whose leaves carry a
 leading layer axis (``nn.stack_params``), so a JAX tree bridges unchanged;
 the Python loop over layers reads each layer's slice as a view
-(``nn.layer_views``): deepseek-moe's stack is ``g0_dense`` (its first
+(``nn.layer_views``), cached for inference and taken anew in each forward
+that records a graph (a view made before ``requires_grad`` was on, or
+shared across optimizer steps, would cut or stale the stacked leaf's
+gradient): deepseek-moe's stack is ``g0_dense`` (its first
 layer) and ``g1_moe``, recurrentgemma's alternates ``g0_rglru``,
 ``g1_local_attn``, ``g2_rglru``, ...; whisper's encoder is
 ``encoder.blocks``.
@@ -55,7 +66,10 @@ enc-dec decode step, as there), ``enc{i}`` around each encoder layer, and
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import tracer
@@ -138,14 +152,25 @@ class Block(Module):
         """x (B, S, d) -> x, or (x, the layer's state) with ``return_state``:
         ``{"attn": its k, v}``, ``{"ssm": Mamba2State}`` or ``{"rnn":
         RGLRUState}``."""
+        x, _, st = self.forward_aux(x, positions=positions, context=context, impl=impl,
+                                    return_state=return_state)
+        return (x, st) if return_state else x
+
+    def forward_aux(self, x: torch.Tensor, *, positions: torch.Tensor | None = None,
+                    context: torch.Tensor | None = None, impl: str = "auto",
+                    return_state: bool = False):
+        """x (B, S, d) -> (x, aux, state), as the reference's block: ``aux``
+        the MoE's auxiliary loss (0 in the other blocks), ``state`` the
+        layer's state with ``return_state``, else None."""
         t = self.block_type
         if t in RECURRENT:
             y, st = self.recurrent()(self.norm1(x))
             x = x + y
             if t == "rglru":
                 x = x + self.mlp(self.norm2(x))
-            return (x, {RECURRENT[t][0]: st}) if return_state else x
+            return x, 0.0, {RECURRENT[t][0]: st} if return_state else None
         h = self.norm1(x)
+        kv = None
         if return_state:
             a, kv = self.attn(h, positions=positions, impl=impl, return_kv=True)
         else:
@@ -153,18 +178,18 @@ class Block(Module):
         x = x + a
         if self.with_cross:
             x = x + self.cross_attn(self.norm_cross(x), context=context, impl=impl)
-        x = x + self._ffn(self.norm2(x), no_drop=False)
-        return (x, {"attn": kv}) if return_state else x
+        y, aux = self._ffn(self.norm2(x), no_drop=False)
+        return x + y, aux, {"attn": kv} if return_state else None
 
     def recurrent(self) -> Module:
         """The recurrent layer of a ``"mamba2"`` or ``"rglru"`` block."""
         return self.mixer if self.block_type == "mamba2" else self.rglru
 
-    def _ffn(self, h: torch.Tensor, no_drop: bool) -> torch.Tensor:
-        """The MLP, or the MoE without its auxiliary loss."""
+    def _ffn(self, h: torch.Tensor, no_drop: bool) -> tuple:
+        """(the MLP's or the MoE's output, the MoE's auxiliary loss or 0)."""
         if self.block_type == "moe":
-            return self.moe(h, no_drop=no_drop)[0]
-        return self.mlp(h)
+            return self.moe(h, no_drop=no_drop)
+        return self.mlp(h), 0.0
 
     def decode(self, x: torch.Tensor, state: dict, cur_len: int, *,
                cross_cache: AttentionCache | None = None):
@@ -185,7 +210,37 @@ class Block(Module):
             y, _ = self.cross_attn.decode(self.norm_cross(x), None, cur_len,
                                           cross_cache=cross_cache)
             x = x + y
-        return x + self._ffn(self.norm2(x), no_drop=True), {"attn": kv}
+        return x + self._ffn(self.norm2(x), no_drop=True)[0], {"attn": kv}
+
+
+# the outputs ``remat="dots"`` saves, as ``jax.checkpoint_policies.checkpoint_dots``
+# saves every ``dot_general``'s: the matmuls as they reach the dispatcher
+_DOTS = frozenset(getattr(torch.ops.aten, op).default
+                  for op in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT = ("none", "dots", "full")
+
+
+def _remat(fn, remat: str):
+    """``fn`` (tensors -> tensors) rematerialized in the backward: ``full``
+    recomputes all of it, ``dots`` all but the matmul outputs; ``none`` is
+    ``fn``.  A hand kernel in ``fn`` launches again in the recompute."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} (expected one of {REMAT})")
+    if remat == "none":
+        return fn
+    kw = dict(use_reentrant=False)
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(torch_checkpoint.checkpoint, fn, **kw)
 
 
 def _zero_cache(group: list, batch: int, cap: int) -> AttentionCache:
@@ -254,10 +309,14 @@ class TransformerLM(Module):
     def _stacks(self) -> list[list[Block]]:
         """Each stacked group's layers (the decoder's groups, then an
         encoder's) as views of their slices, rebuilt when the parameters are
-        replaced (a load) or their storage changes."""
+        replaced (a load) or their storage changes, and taken anew in a
+        forward that records a graph of trainable leaves."""
         stacks = [(getattr(self.blocks, f"g{i}_{t}"), n) for i, (t, n) in enumerate(self.groups)]
         if self.cfg.is_encdec:
             stacks.append((self.encoder.blocks, self.cfg.encoder.n_layers))
+        if torch.is_grad_enabled() and any(p.requires_grad for g, _ in stacks
+                                           for p in g.parameters()):
+            return [layer_views(g, n) for g, n in stacks]  # views in this graph
         key = tuple(p.data_ptr() for g, _ in stacks for p in g.parameters())
         if self._views[0] != key:
             self._views = (key, [layer_views(g, n) for g, n in stacks])
@@ -298,17 +357,50 @@ class TransformerLM(Module):
                 mrope_positions=None, impl: str = "auto") -> torch.Tensor:
         """Full forward: tokens (B, S) or ``embeds`` (B, S, d) -> logits (B,
         S, vocab); causal self-attention, and in an enc-dec model
-        cross-attention to ``encode(enc_embeds)`` (in an ``encoder`` scope)."""
+        cross-attention to ``encode(enc_embeds)`` (in an ``encoder`` scope):
+        ``forward_train``'s logits."""
+        return self.forward_train(tokens, embeds=embeds, enc_embeds=enc_embeds,
+                                  mrope_positions=mrope_positions, impl=impl)[0]
+
+    def forward_train(self, tokens: torch.Tensor | None = None, *, embeds=None,
+                      enc_embeds=None, mrope_positions=None, impl: str = "auto",
+                      remat: str = "none"):
+        """The reference's ``forward``: (logits (B, S, vocab), the MoE layers'
+        auxiliary losses summed in fp32), each decoder layer wrapped by
+        ``remat``."""
         x, positions = self._inputs(tokens, embeds, mrope_positions)
         context = None
         if self.cfg.is_encdec:
             with tracer.scope("encoder"):
                 context = self.encode(enc_embeds, impl=impl)
+        aux = 0.0  # a tensor from the first MoE layer on: no op where there is none
         for i, group in enumerate(self.layers()):
             for j, layer in enumerate(group):
+                def body(x, aux, layer=layer):
+                    y, a, _ = layer.forward_aux(x, positions=positions, context=context, impl=impl)
+                    return y, aux + a
+
                 with tracer.scope(self._scope(i, j)):
-                    x = layer(x, positions=positions, context=context, impl=impl)
-        return self._logits(self.final_norm(x))
+                    x, aux = _remat(body, remat)(x, aux)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        return self._logits(self.final_norm(x)), aux
+
+    def loss(self, batch: dict, *, impl: str = "auto", remat: str = "none") -> torch.Tensor:
+        """The reference's training loss of ``batch`` (``tokens`` or
+        ``embeds``, ``labels``, and ``enc_embeds`` / ``mrope_positions``
+        where the model takes them): the mean NLL of the labels in fp32 over
+        the positions whose label is >= 0, plus the auxiliary loss."""
+        logits, aux = self.forward_train(
+            batch.get("tokens"), embeds=batch.get("embeds"),
+            enc_embeds=batch.get("enc_embeds"), mrope_positions=batch.get("mrope_positions"),
+            impl=impl, remat=remat)
+        labels = torch.as_tensor(batch["labels"], device=logits.device)
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        nll = ((logz - label_logit) * mask).sum() / mask.sum().clamp(min=1.0)
+        return nll + aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.embed.attend(x) if self.cfg.tie_embeddings else self.lm_head(x)

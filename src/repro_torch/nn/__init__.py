@@ -11,11 +11,12 @@ from repro_torch.nn.module import (
     param_defs,
     scaled_init,
     stack_params,
+    trainable,
     zeros_init,
 )
 
 __all__ = [
     "Module", "ParamDef", "from_jax_params", "init_module", "init_params", "layer_views",
     "materialize", "normal_init", "ones_init", "param_defs", "scaled_init", "stack_params",
-    "zeros_init",
+    "trainable", "zeros_init",
 ]

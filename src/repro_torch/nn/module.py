@@ -11,7 +11,10 @@ and a flattened JAX tree loads with no transpose (:func:`from_jax_params`).
 Layers are built on the ``meta`` device: building the full-size model costs
 no memory, and :func:`init_params` / :func:`materialize` give it values;
 :func:`init_module` draws the seeded values leaf by leaf straight onto the
-device, so the host never holds the whole state dict.
+device, so the host never holds the whole state dict.  Parameters are
+declared with ``requires_grad=False`` (inference needs no graph);
+:func:`trainable` turns it on for every declared leaf of a built module
+and returns them by name, the dict the optimizer and the checkpointer take.
 
 A stack of identical layers keeps the reference's scanned layout: every
 parameter of the layer gains a leading layer axis under the layer's own keys
@@ -151,6 +154,27 @@ def layer_views(module: torch.nn.Module, n: int) -> list:
         return out
 
     return [view(module, j) for j in range(n)]
+
+
+def trainable(module: torch.nn.Module) -> dict[str, torch.nn.Parameter]:
+    """Every declared leaf of a built ``module``, by its ``state_dict`` key,
+    with ``requires_grad`` turned on: all of them train, as the reference's
+    ``value_and_grad`` over the whole tree (a leaf the loss does not reach
+    gets a zero gradient there; see ``training.optimizer``).  A stacked
+    leaf trains through the per-layer views its forward takes.  Values
+    drawn or loaded under ``torch.inference_mode`` cannot be saved for
+    backward: load outside it."""
+    out = {}
+    for key in param_defs(module):
+        p = module.get_parameter(key)
+        if p.device.type == "meta":
+            raise ValueError(f"{key} is on meta: build the module's values first "
+                             f"(init_module, materialize)")
+        if p.is_inference():
+            raise ValueError(f"{key} was made under torch.inference_mode and cannot train: "
+                             f"load it outside inference mode")
+        out[key] = p.requires_grad_(True)
+    return out
 
 
 def param_defs(module: torch.nn.Module) -> dict[str, ParamDef]:

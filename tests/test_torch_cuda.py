@@ -955,3 +955,185 @@ def test_profiler_analysis_attributes_the_hand_kernels(h100):
     assert scopes.get("stage", 0) >= 0.9 * (cats["conv"] + cats["attention"]), scopes
     b = pa.busy(prof, window_ms=1e3)
     assert 0 < b["busy_ms"] < 1e3 and b["launches"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernel tier's autograd Functions and a train step on the card
+# ---------------------------------------------------------------------------
+
+# (B, H, W, C_in, C_out, K, stride) and the epilogues whose every operand
+# (and the emitted statistics' cotangent) the conv's Function pulls back
+GRAD_CONV_CASES = [((2, 16, 16, 32, 64, 3, 1), EPILOGUES[6]), ((2, 16, 16, 32, 64, 3, 1),
+                                                               EPILOGUES[7]),
+                   ((1, 17, 11, 8, 16, 3, 2), EPILOGUES[5]), ((2, 12, 12, 64, 32, 1, 1),
+                                                               EPILOGUES[3])]
+# (B, Sq, Skv, H, KVH, D, causal, window, kv_offset)
+GRAD_ATTN_CASES = [(2, 256, 256, 8, 8, 40, False, None, 0), (2, 256, 77, 8, 8, 80, False, None, 0),
+                   (1, 300, 300, 8, 2, 64, True, None, 0), (1, 200, 200, 4, 4, 64, True, 64, 0),
+                   (1, 100, 164, 4, 1, 128, True, None, 64)]
+GRAD = dict(rtol=1e-4, atol=1e-4)
+
+
+def _grads_of(fn, ops, cot):
+    leaves = [None if o is None else o.detach().requires_grad_(True) for o in ops]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrt = [t for t in leaves if t is not None]
+    grads = iter(torch.autograd.grad(outs, wrt, cot))
+    return out, [next(grads) if t is not None else None for t in leaves]
+
+
+def _function_vs_plain(kernel_fn, plain_fn, ops, cot, name):
+    """The kernel tier's Function on the card against plain autograd on the
+    same inputs: one launch in the forward, none in the backward, and every
+    operand's gradient within 1e-4 of the output's scale."""
+    build.launches.clear()
+    out, grads = _grads_of(kernel_fn, ops, cot)
+    assert build.launches[name] == 1, dict(build.launches)
+    gold_out, gold = _grads_of(plain_fn, ops, cot)
+    for g, gg in zip(grads, gold):
+        assert (g is None) == (gg is None)
+        if g is not None:
+            _close_scaled(g.cpu(), gg.cpu(), GRAD)
+    return out, gold_out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,combo", GRAD_CONV_CASES,
+                         ids=lambda c: "-".join(map(str, c)) if isinstance(c, tuple)
+                         else "-".join(sorted(c)))
+def test_conv2d_function_grads_on_the_card_match_plain(h100, shape, combo):
+    from repro_torch.kernels.conv2d import ops as conv_ops
+
+    x, w, kw = _conv_case(shape, combo, seed=9)
+    t = {k: torch.from_numpy(v).to(h100) for k, v in kw.items() if isinstance(v, np.ndarray)}
+    ops = [torch.from_numpy(x).to(h100), torch.from_numpy(w).to(h100), t.get("gn_a"),
+           t.get("gn_b"), t.get("bias"), t.get("temb"), t.get("residual")]
+    static = dict(stride=kw["stride"], gn_silu=kw.get("gn_silu", True),
+                  silu=kw.get("silu", False), emit_stats=kw["emit_stats"])
+
+    def run(impl):
+        def f(x, w, a, b, bias, temb, res):
+            return conv_ops.conv2d(x, w, gn_affine=None if a is None else (a, b), bias=bias,
+                                   temb=temb, residual=res, impl=impl, **static)
+        return f
+
+    B, H, W, Cin, Cout, K, s = shape
+    OH, OW = (H + 2 * (K // 2) - K) // s + 1, (W + 2 * (K // 2) - K) // s + 1
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cot = (torch.randn((B, OH, OW, Cout), generator=g, device=h100),)
+    if kw["emit_stats"]:
+        cot += (1e-3 * torch.randn((B, 2, Cout), generator=g, device=h100),)
+    _function_vs_plain(run("kernel"), run("torch"), ops, cot, "conv2d")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GRAD_ATTN_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_attention_function_grads_on_the_card_match_plain(h100, case):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, Sq, Skv, H, KVH, D, causal, window, offset = case
+    q, k, v = (torch.from_numpy(a).to(h100) for a in _attn_inputs(case, seed=3))
+    kw = dict(causal=causal, window=window, kv_offset=offset)
+    cot = (torch.randn_like(q),)
+    _function_vs_plain(lambda q, k, v: fa_ops.attention(q, k, v, impl="kernel", **kw),
+                       lambda q, k, v: fa_ops.attention(q, k, v, impl="torch", **kw),
+                       [q, k, v], cot, "flash_attention")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4096, 320, 32), (2, 64, 1280, 32), (2, 100, 64, 8)])
+def test_groupnorm_function_grads_on_the_card_match_plain(h100, shape):
+    """The Function's backward differentiates the one-pass variance the
+    kernel computes; the torch tier's plain version is two-pass."""
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.groupnorm_silu import ref as gn_ref
+
+    B, N, C, groups = shape
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((2 * rng.standard_normal((B, N, C)) + 1).astype(np.float32)).to(h100)
+    scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(C)).astype(np.float32)).to(h100)
+    bias = torch.from_numpy((0.1 * rng.standard_normal(C)).astype(np.float32)).to(h100)
+    cot = (torch.randn_like(x),)
+    _function_vs_plain(
+        lambda x, s, b: gn_ops.groupnorm_silu(x, s, b, groups=groups, impl="kernel"),
+        lambda x, s, b: gn_ref.groupnorm_silu_onepass_ref(x, s, b, groups=groups),
+        [x, scale, bias], cot, "groupnorm_silu")
+
+
+def _step_grads(model, loss_of):
+    from repro_torch.nn import trainable
+
+    params = trainable(model)
+    loss = loss_of()
+    return loss.detach(), dict(zip(params, torch.autograd.grad(loss, list(params.values()),
+                                                               allow_unused=True)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["tiny-sd", "olmo-1b"])
+def test_reduced_train_step_kernel_tier_matches_torch_tier(h100, which):
+    """A reduced model's loss and every leaf's gradient on the card: the
+    kernel tier (the Functions, the fused structure) against the torch
+    tier; the forward launches the hand kernels and the backward none."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.tiny import TINY_TTI_CASCADE
+    from repro_torch.data import SyntheticLMData, SyntheticTTIData
+    from repro_torch.models.diffusion import DiffusionPipeline
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.nn import init_module
+    from repro_torch.training.trainer import step_generator
+
+    if which == "tiny-sd":
+        cfg = TINY_TTI_CASCADE
+        model = init_module(DiffusionPipeline(cfg), 0, h100)
+        b = SyntheticTTIData(latent_hw=cfg.latent_size, latent_ch=cfg.unet.in_channels,
+                             text_vocab=cfg.text.vocab, text_len=cfg.text.max_len,
+                             global_batch=2).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(h100) for k, v in b.items()}
+        t, eps = model.train_noise(tuple(batch["latents"].shape), step_generator(0, 0))
+        kernels = ("conv2d", "flash_attention", "groupnorm_silu")
+
+        def loss_of(impl):
+            return lambda: model.denoise_loss(batch, t, eps, impl=impl)
+    else:
+        model = init_module(TransformerLM(reduced(get_config("olmo-1b"))), 0, h100)
+        b = SyntheticLMData(vocab=model.cfg.vocab, seq_len=64, global_batch=2).batch_at(0)
+        batch = {k: torch.from_numpy(v).to(h100) for k, v in b.items()}
+        kernels = ("flash_attention",)
+
+        def loss_of(impl):
+            return lambda: model.loss(batch, impl=impl)
+
+    build.launches.clear()
+    with torch.no_grad():
+        loss_of("kernel")()
+    plan = dict(build.launches)
+    assert all(plan.get(k, 0) > 0 for k in kernels), plan
+    build.launches.clear()
+    k_loss, k_grads = _step_grads(model, loss_of("kernel"))
+    assert dict(build.launches) == plan  # the backward launches no hand kernel
+    t_loss, t_grads = _step_grads(model, loss_of("torch"))
+    assert abs(float(k_loss) - float(t_loss)) <= 1e-3 * abs(float(t_loss))
+    total = torch.sqrt(sum(g.norm() ** 2 for g in t_grads.values() if g is not None))
+    for key, g in t_grads.items():
+        if g is None or not g.abs().max() > 0:
+            continue
+        kg = k_grads[key]
+        assert kg is not None and kg.abs().max() > 0, key
+        # relative to the leaf's norm, or to 1e-6 of the global norm where the
+        # exact gradient is 0 (an attention key bias: roundoff on both tiers)
+        assert float((kg - g).norm() / torch.clamp(g.norm(), min=1e-6 * total)) < 1e-2, key
+
+
+@pytest.mark.gpu
+def test_train_launcher_runs_reduced_on_the_card(h100, tmp_path):
+    from repro_torch.launch import train
+
+    build.launches.clear()
+    model, state, history = train.main(
+        ["--arch", "olmo-1b", "--reduced", "--steps", "3", "--batch", "2", "--seq", "64",
+         "--ckpt-dir", str(tmp_path)], log=lambda *_: None)
+    assert next(model.parameters()).device.type == "cuda"
+    assert len(history) == 3 and all(np.isfinite(history))
+    assert build.launches["flash_attention"] == 3 * model.cfg.n_layers

@@ -53,7 +53,9 @@ def test_checked_files_include_the_ttv_slice():
                 "configs/deepseek_moe_16b.py", "configs/qwen3_moe_30b_a3b.py",
                 "models/layers/ssm.py", "models/layers/rglru.py", "configs/mamba2_780m.py",
                 "configs/recurrentgemma_9b.py", "configs/whisper_base.py",
-                "configs/qwen2_vl_2b.py", "launch/steps.py"):
+                "configs/qwen2_vl_2b.py", "launch/steps.py", "launch/train.py",
+                "training/optimizer.py", "training/trainer.py", "checkpoint/checkpointer.py",
+                "runtime/fault_tolerance.py", "data/pipeline.py", "kernels/vjp.py"):
         assert port / rel in PORT_FILES
 
 
@@ -96,6 +98,27 @@ def test_encdec_steps_run_without_jax():
         "for cur in (5, 6):\n"
         "    logits, caches = serve(logits[:, -1].argmax(-1)[:, None], caches, cur, context=ctx)\n"
         "assert tuple(logits.shape) == (2, 1, 256) and bool(torch.isfinite(logits).all())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=300)
+
+
+def test_training_runs_without_jax(tmp_path):
+    """A process that never imported ``jax`` or ``repro`` trains reduced
+    olmo-1b on the CPU through ``launch/train.py``, then checkpoints its
+    state and restores it."""
+    code = (
+        "import sys\n"
+        "from repro_torch.checkpoint import Checkpointer\n"
+        "from repro_torch.launch import train\n"
+        f"d = {str(tmp_path)!r}\n"
+        "model, state, hist = train.main(['--arch', 'olmo-1b', '--reduced', '--device', 'cpu',\n"
+        "    '--steps', '2', '--batch', '2', '--seq', '16', '--ckpt-dir', d])\n"
+        "assert len(hist) == 2\n"
+        "ck = Checkpointer(d, async_save=False)\n"
+        "ck.save(2, state)\n"
+        "assert int(ck.restore(state)['opt']['step']) == 2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
