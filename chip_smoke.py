@@ -27,7 +27,7 @@ seed, 2 requests each:
   - Parti, autoregressive text-to-image in bf16 (21.9 B parameters, 87.6 GB
     in fp32, do not fit the card): 80 causal layers of d 4096 decode image
     tokens one at a time against a KV cache (the main path decodes the first
-    128 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
+    64 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
     256x256; flash attention in the text encoder, conv2d in the decoder;
   - the dense assigned LMs in fp32, as LLaMA but with 16 new tokens:
     olmo-1b (non-parametric LayerNorm, the tied head over a vocab of 50304),
@@ -187,17 +187,30 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
 
   9. train    -- (``[train]`` lines, once after the paths) training on the
                  kernel tier, whose ``torch.autograd.Function``s launch each
-                 hand kernel forward and pull the gradients back through its
-                 plain version: full-width Stable Diffusion (all 1025.8 M
-                 leaves; ``SyntheticTTIData`` 2 x 64x64x4 latents with 16
-                 text tokens, ``DiffusionPipeline.train_loss``, the trainer
-                 with AdamW lr 2e-4, warmup 50, weight decay 0.01, as
-                 ``examples/train_tti.py`` on the full config) and
+                 hand kernel forward (all five: conv2d, flash attention,
+                 GroupNorm, the temporal conv and temporal attention) and
+                 pull the gradients back through its plain version, in fp32:
+                 full-width Stable Diffusion (all 1025.8 M leaves;
+                 ``SyntheticTTIData`` 2 x 64x64x4 latents with 16 text
+                 tokens, ``DiffusionPipeline.train_loss``), Make-A-Video (2
+                 videos of 16 frames of 64x64x4 and 16 text tokens, in 2
+                 microbatches of one video: B·F = 16 frames), Phenaki (2 x 11
+                 x 256 video tokens), Muse (2 x 256 image tokens, all 48
+                 layers) and Parti (its next-token loss over 2 x 1024 image
+                 tokens, cut to ``PARTI_TRAIN_LAYERS`` = 4 of its 80 layers:
+                 at full depth its state would need about 263 GB), each
+                 through its own ``train_loss`` and the trainer with AdamW lr
+                 2e-4, warmup 50, weight decay 0.01, as
+                 ``examples/train_tti.py`` on the full config (the token
+                 models' text at the prompt length they serve; batches drawn
+                 from the seed in the script, ``SeededBatches``: the
+                 reference's data pipeline has no video or token source), and
                  full-width olmo-1b (2 x 2048 tokens through
                  ``python -m repro_torch.launch.train``'s ``main``).  For each:
-                 the train forward's kernel calls recorded; each call's
-                 Function gradients of a random cotangent against its plain
-                 version's autograd gradients (1e-4, widened for convs as in
+                 the train forward's kernel calls recorded (one microbatch);
+                 each call's Function gradients of a random cotangent against
+                 its plain version's autograd gradients (1e-4, widened for
+                 convs and the temporal conv as in
                  phase 4; plus a GQA and a windowed flash call), one launch
                  in the forward and none in the backward; step 1 on the
                  kernel tier against the torch tier on the same weights,
@@ -208,11 +221,14 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
                  and only roundoff on both tiers -- and no leaf with a
                  gradient on the torch tier without one on the kernel tier)
                  launching exactly the forward's plan; the
-                 calls timed as in phase 4; then ``TRAIN_STEPS`` steps with
-                 finite losses and launches equal to the plan times the
-                 steps (counts set to 0 just before), each step's forward,
-                 backward and optimizer timed by CUDA events, the peak
-                 memory, and one step under ``torch.profiler`` (busy share).
+                 calls timed as in phase 4 (a call an inference path's phase
+                 4 already checked and timed, as Muse's and Phenaki's
+                 attention calls, keeps that row); then ``TRAIN_STEPS`` steps
+                 with finite losses and launches equal to the plan times the
+                 microbatches times the steps (counts set to 0 just before),
+                 each step's forward, backward and optimizer timed by CUDA
+                 events, the peak memory, and one step under
+                 ``torch.profiler`` (busy share).
                  Last, a reduced Stable Diffusion and a reduced olmo-1b
                  restart from a checkpoint: 4 steps in one run against 2, a
                  checkpoint and 2 more, parameters equal bit for bit (or
@@ -237,6 +253,8 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -723,13 +741,16 @@ def _compare(name, case, out, gold, tol):
     return max_err(out, gold)
 
 
-def check_kernels(rec, passes, rec_passes):
+def check_kernels(rec, passes, rec_passes, timed: dict | None = None):
     """Replay every recorded call: kernel vs plain in fp32 and bf16, and
     times weighted by the launches one main-path generate makes: a call
     recorded n times in a stage that made ``rec_passes`` network passes
-    launches n * ``passes`` / ``rec_passes`` times in the main path."""
+    launches n * ``passes`` / ``rec_passes`` times in the main path.
+    ``timed`` maps each call signature checked so far to its row: a call
+    found there takes that row's errors and times under its own launches,
+    and every call checked here is added to it."""
     rows = []
-    for call in rec.calls.values():
+    for key, call in rec.calls.items():
         by_stage = {}
         for st, n in call["counts"].items():
             if n * passes[st] % rec_passes[st]:
@@ -737,6 +758,13 @@ def check_kernels(rec, passes, rec_passes):
                                      f"passes of {st}")
             by_stage[st] = n * passes[st] // rec_passes[st]
         weight = sum(by_stage.values())
+        if timed is not None and key in timed:
+            row = dict(timed[key], launches_by_stage=by_stage, launches=weight)
+            rows.append(row)
+            log(f"  {row['kernel']} {row['shape']}: x{weight}, checked and timed before (err "
+                f"{row['max_abs_err']:.2e}, kernel {row['ms']:.4f} ms, device "
+                f"{row['device_ms']:.4f})")
+            continue
         case = CASES[call["name"]]([_on_card(a) for a in call["args"]],
                                    {k: _on_card(v) for k, v in call["kw"].items()})
         label = f"{call['name']} {case['shape']} {str(case['dtype']).split('.')[-1]}"
@@ -770,9 +798,11 @@ def check_kernels(rec, passes, rec_passes):
             f"roofline {row['roofline_share']:.3f} (device {row['device_roofline_share']:.3f})"
             + (f", plan {row['plan']}" if row["plan"] else ""))
         # no card beats its bound: a share above 1 means the bound is wrong
-        for key in ("roofline_share", "device_roofline_share"):
-            if row[key] > 1:
-                raise AssertionError(f"{label}: {key} {row[key]:.3f} > 1")
+        for share in ("roofline_share", "device_roofline_share"):
+            if row[share] > 1:
+                raise AssertionError(f"{label}: {share} {row[share]:.3f} > 1")
+        if timed is not None:
+            timed[key] = row
         del case
         torch.cuda.empty_cache()
     return rows
@@ -1250,8 +1280,9 @@ SD_LAUNCHER_REQUESTS = 16
 # 4 of them (one batch) for the route, sampling and generate checks
 LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
 # of Parti's 1024 image tokens in its main path (ms a token is the reading;
-# 128 leaves the whole script room for the MoE and recurrent paths)
-PARTI_DECODE_STEPS = 128
+# 64 leaves the whole script room for the MoE and recurrent paths and the
+# train paths of phase 9)
+PARTI_DECODE_STEPS = 64
 # The dense LMs in fp32 on one card and their layers there (None: all);
 # glm4-9b's 40 identical layers are cut to 10 to fund the recurrent paths
 # and phase 9
@@ -2034,11 +2065,12 @@ def run_encdec_path(cfg, *, smi: str) -> dict:
 
 
 def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
-             serve_fn=None, decode_steps: int | None = None, max_new: int | None = None,
-             prompt_len: int | None = None, extra=None) -> dict:
+             timed: dict | None = None, serve_fn=None, decode_steps: int | None = None,
+             max_new: int | None = None, prompt_len: int | None = None, extra=None) -> dict:
     """Phases 3-7 of one path through ``wl.generate``, then ``extra``
     (``(name, fn)``: ``fn(wl, model)`` as a phase of its own, its result in
-    the summary under ``name``) and phase 8 (``serve_fn``)."""
+    the summary under ``name``) and phase 8 (``serve_fn``).  Phase 4's rows
+    go into ``timed`` by call signature (``check_kernels``)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.suite import with_dtype
     from repro_torch.kernels import build
@@ -2076,7 +2108,7 @@ def run_path(cfg, *, tag: str, kernels: tuple, record_steps: int, smi: str,
 
     # -- 4. kernels vs plain ----------------------------------------------------
     with phase(cfg.name, "kernels"):
-        rows = check_kernels(rec, passes, stage_passes(wl_rec, rec_kw))
+        rows = check_kernels(rec, passes, stage_passes(wl_rec, rec_kw), timed)
         del rec
         torch.cuda.empty_cache()
         (OUT_DIR / f"kernel_calls_{cfg.name}.json").write_text(
@@ -2294,6 +2326,9 @@ TRAIN_LEAF_REL_L2 = 1e-2  # and each leaf's gradient (relative L2)
 # scores), so both tiers give it roundoff (1e-11 of the global norm), whose
 # relative difference says nothing.
 LEAF_FLOOR = 1e-6
+# Parti trains on 4 of its 80 layers (about 1.5 B params): at full depth its
+# 21.9 B params in bf16 with fp32 moments would need about 263 GB
+PARTI_TRAIN_LAYERS = 4
 RESTART_RTOL = 1e-6  # a restart where the card is not bit-deterministic
 # the extra flash shapes of the gradient check: a GQA and a windowed call
 TRAIN_ATTN_EXTRA = [((2, 1024, 16, 128), (2, 1024, 4, 128), dict(causal=True)),
@@ -2364,8 +2399,23 @@ def _grad_fns(call):
     if call["name"] == "flash_attention":
         return (args, lambda q, k, v: fa_ops.attention(q, k, v, impl="kernel", **kw),
                 lambda q, k, v: fa_ops.attention(q, k, v, impl="torch", **kw), GRAD_F32)
-    return (args, lambda x, s, b: gn_ops.groupnorm_silu(x, s, b, impl="kernel", **kw),
-            lambda x, s, b: gn_ref.groupnorm_silu_ref(x, s, b, **kw), GRAD_F32)
+    if call["name"] == "temporal_conv1d":
+        # the wrapper's (B, F, N, C) input as the layer's (B, F, N, 1, C) video
+        x, w, bias = args
+        B, nf, N, C = x.shape
+        widen = max(1.0, math.sqrt(w.shape[0] * C / 64))  # as phase 4: R = K * C
+        return ([x.reshape(B, nf, N, 1, C), w, bias],
+                lambda x, w, b: conv_ops.temporal_conv1d(x, w, b, impl="kernel"),
+                lambda x, w, b: conv_ops.temporal_conv1d(x, w, b, impl="torch"),
+                dict(rtol=GRAD_F32["rtol"] * widen, atol=GRAD_F32["atol"] * widen))
+    if call["name"] == "temporal_flash_attention":
+        return (args, lambda q, k, v: fa_ops.temporal_attention(q, k, v, impl="kernel", **kw),
+                lambda q, k, v: fa_ops.temporal_attention(q, k, v, impl="torch", **kw),
+                GRAD_F32)
+    if call["name"] == "groupnorm_silu":
+        return (args, lambda x, s, b: gn_ops.groupnorm_silu(x, s, b, impl="kernel", **kw),
+                lambda x, s, b: gn_ref.groupnorm_silu_ref(x, s, b, **kw), GRAD_F32)
+    raise ValueError(f"no gradient check for {call['name']}")
 
 
 def check_kernel_grads(calls: list) -> list[dict]:
@@ -2548,11 +2598,13 @@ def restart_check(name: str, make_model, loss_of, source, ckpt_root: Path) -> di
                 losses_restarted=h_first + h_rest)
 
 
-def train_path(name, model, loss_of, params, *, smi: str) -> tuple:
+def train_path(name, model, loss_of, params, *, smi: str, timed: dict | None = None,
+               microbatches: int = 1) -> tuple:
     """The shared part of a full-width train path: record the forward's
-    kernel calls, check each call's Function gradients, compare step 1 on
-    the two tiers, and time the calls (phase 4's ``check_kernels``, weighted
-    by ``TRAIN_STEPS``)."""
+    kernel calls (one microbatch), check each call's Function gradients,
+    compare step 1 on the two tiers, and time the calls (phase 4's
+    ``check_kernels``, weighted by ``TRAIN_STEPS`` x ``microbatches``; a
+    call phase 4 already timed keeps its row)."""
     with phase(name, "train record + grads"):
         rec = record_train_forward(loss_of("kernel"))
         plan = plan_of(rec)
@@ -2565,7 +2617,7 @@ def train_path(name, model, loss_of, params, *, smi: str) -> tuple:
     with phase(name, "train tiers"):
         tiers = compare_tiers(name, params, loss_of, plan)
     with phase(name, "train kernels"):
-        rows = check_kernels(rec, {"train": TRAIN_STEPS}, {"train": 1})
+        rows = check_kernels(rec, {"train": TRAIN_STEPS * microbatches}, {"train": 1}, timed)
         (OUT_DIR / f"kernel_calls_train_{name}.json").write_text(
             json.dumps(dict(device=smi, rows=rows), indent=1))
     del rec
@@ -2573,12 +2625,13 @@ def train_path(name, model, loss_of, params, *, smi: str) -> tuple:
     return plan, tiers, rows
 
 
-def timed_train(name: str, what: str, plan: dict, run) -> tuple:
+def timed_train(name: str, what: str, plan: dict, run, microbatches: int = 1) -> tuple:
     """``run(marks) -> (losses, step)``: ``TRAIN_STEPS`` steps with
     the launch counts set to 0 just before and read just after (they must be
-    the forward's plan times the steps, and the losses finite), each step's
-    forward, backward and optimizer timed by CUDA events, the peak memory;
-    then ``step()``, one more, under ``torch.profiler``."""
+    the forward's plan times the microbatches times the steps, and the
+    losses finite), each step's forward, backward and optimizer timed by
+    CUDA events (summed over the microbatches), the peak memory; then
+    ``step()``, one more, under ``torch.profiler``."""
     from repro_torch.kernels import build
 
     marks = StepMarks()
@@ -2592,10 +2645,11 @@ def timed_train(name: str, what: str, plan: dict, run) -> tuple:
     launches = dict(build.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = marks.steps()
-    expected = {k: v * TRAIN_STEPS for k, v in plan.items()}
+    expected = {k: v * microbatches * TRAIN_STEPS for k, v in plan.items()}
     log(f"[train] {name} ({what}): {TRAIN_STEPS} steps in {wall:.2f} s, losses "
         f"{[round(x, 5) for x in hist]}; {step_split_text(steps)}; peak {peak:.2f} GiB; "
-        f"launches {launches} (plan x {TRAIN_STEPS}: {expected})")
+        f"launches {launches} (plan x {microbatches} microbatches x {TRAIN_STEPS}: "
+        f"{expected})")
     if launches != expected or not all(map(math.isfinite, hist)):
         raise AssertionError(f"{name}: train launches {launches} != {expected} or a loss is "
                              f"not finite: {hist}")
@@ -2608,16 +2662,36 @@ def timed_train(name: str, what: str, plan: dict, run) -> tuple:
                 profile=prof)
 
 
-def run_train(*, smi: str) -> dict:
+class SeededBatches:
+    """A step-indexed batch source (``batch_at(step)``, as ``data.pipeline``'s
+    sources) of seeded numpy arrays: ``arrays`` maps each key to its shape
+    and what to draw, ``"normal"`` (fp32 standard normal) or a vocabulary
+    size (int32 token ids).  The reference's pipeline has no video or image
+    token source, and the port adds none."""
+
+    def __init__(self, **arrays):
+        self.arrays = arrays
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng([SEED, step])
+        return {k: rng.standard_normal(shape, dtype=np.float32) if draw == "normal"
+                else rng.integers(0, draw, shape, dtype=np.int32)
+                for k, (shape, draw) in self.arrays.items()}
+
+
+def run_train(*, smi: str, timed: dict | None = None) -> dict:
     """Phase 9: full-width Stable Diffusion (``train_loss`` through the
-    trainer, as ``examples/train_tti.py`` on the full config) and olmo-1b
-    (through ``launch/train.py``) train ``TRAIN_STEPS`` steps on the kernel
-    tier, after the gradient checks and step 1 against the torch tier; then
-    the reduced restart checks."""
+    trainer, as ``examples/train_tti.py`` on the full config), Make-A-Video,
+    Phenaki, Muse and Parti (cut to ``PARTI_TRAIN_LAYERS`` layers) through
+    the trainer on their ``train_loss``, and olmo-1b (through
+    ``launch/train.py``) train ``TRAIN_STEPS`` steps on the kernel tier, in
+    fp32, after the gradient checks and step 1 against the torch tier; then
+    the reduced restart checks.  ``timed``: phase 4's rows by call
+    signature, reused where a train forward repeats a call."""
     import tempfile
 
     from repro_torch.configs import get_config, reduced
-    from repro_torch.configs.suite import STABLE_DIFFUSION
+    from repro_torch.configs.suite import MAKE_A_VIDEO, MUSE, PARTI, PHENAKI, STABLE_DIFFUSION
     from repro_torch.data import SyntheticLMData, SyntheticTTIData
     from repro_torch.launch import train as train_launcher
     from repro_torch.models.transformer import TransformerLM
@@ -2626,41 +2700,99 @@ def run_train(*, smi: str) -> dict:
     from repro_torch.training.trainer import make_accumulating_step, step_generator
     from repro_torch.workload import reduced_workload, workload_for
 
+    timed = {} if timed is None else timed
     ckpt_root = Path(tempfile.mkdtemp(prefix="train-", dir=OUT_DIR))
     summary, rows, launches = {}, [], collections.Counter()
+    # examples/train_tti.py's AdamW for every suite model
+    opt = AdamWConfig(lr=2e-4, warmup_steps=50, total_steps=TRAIN_STEPS, weight_decay=0.01)
+
+    def suite_path(cfg, data, fixed, *, microbatches=1, what: str):
+        """One suite model: ``train_path``'s checks on ``fixed(model,
+        batch)(impl)``, step 1's loss on the first microbatch of
+        ``data.batch_at(0)`` with its draws fixed, then ``TRAIN_STEPS``
+        steps of its ``train_loss`` through the trainer over ``data`` in
+        ``microbatches`` (``timed_train``)."""
+        nonlocal rows
+        with phase(cfg.name, "train init"):
+            model = workload_for(cfg).init(SEED, "cuda")
+            params = trainable(model)
+        first = {k: torch.from_numpy(v[: len(v) // microbatches]).cuda()
+                 for k, v in data.batch_at(0).items()}
+        plan, tiers, path_rows = train_path(cfg.name, model, fixed(model, first), params,
+                                            smi=smi, timed=timed, microbatches=microbatches)
+        rows += path_rows
+        n = sum(p.numel() for p in params.values()) / 1e6
+
+        def loss(b, g):
+            return model.train_loss(b, g)
+
+        def run(marks):
+            tcfg = TrainConfig(total_steps=TRAIN_STEPS, microbatches=microbatches, log_every=1,
+                               checkpoint_every=10 ** 9, opt=opt, seed=SEED,
+                               checkpoint_dir=str(ckpt_root / cfg.name))
+            state, hist = train(model, loss, data, tcfg, device="cuda", mark=marks,
+                                log=lambda s: log(f"[train] {cfg.name} {s}"))
+            step = make_accumulating_step(loss, opt, microbatches)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(TRAIN_STEPS).items()}
+            return hist, lambda: step(params, state["opt"], batch, SEED, TRAIN_STEPS)
+
+        with phase(cfg.name, "train steps"):
+            summary[cfg.name] = dict(plan=plan, tiers=tiers, params_m=n,
+                                     microbatches=microbatches, **timed_train(
+                                         cfg.name, f"{n:.1f} M params, all trained; {what}",
+                                         plan, run, microbatches))
+        launches.update(summary[cfg.name]["launches"])
+        del model, params, first, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def denoise(key: str):
+        def fixed(model, batch):
+            t, eps = model.train_noise(tuple(batch[key].shape), step_generator(SEED, 0))
+            return lambda impl: lambda: model.denoise_loss(batch, t, eps, impl=impl)
+        return fixed
+
+    def masked(key: str, loss: str):
+        def fixed(model, batch):
+            mask = model.train_mask(tuple(batch[key].shape), step_generator(SEED, 0))
+            return lambda impl: lambda: getattr(model, loss)(batch, mask, impl=impl)
+        return fixed
 
     # -- Stable Diffusion, as examples/train_tti.py on the full config ---------
     cfg = STABLE_DIFFUSION
-    with phase(cfg.name, "train init"):
-        model = workload_for(cfg).init(SEED, "cuda")
-        params = trainable(model)
-    data = SyntheticTTIData(latent_hw=cfg.latent_size, latent_ch=cfg.unet.in_channels,
-                            text_vocab=cfg.text.vocab, text_len=min(cfg.text.max_len, 16),
-                            global_batch=2)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
-    t, eps = model.train_noise(tuple(batch["latents"].shape), step_generator(SEED, 0))
-    plan, tiers, sd_rows = train_path(
-        cfg.name, model, lambda impl: lambda: model.denoise_loss(batch, t, eps, impl=impl),
-        params, smi=smi)
-    rows += sd_rows
-    opt = AdamWConfig(lr=2e-4, warmup_steps=50, total_steps=TRAIN_STEPS, weight_decay=0.01)
+    suite_path(cfg, SyntheticTTIData(latent_hw=cfg.latent_size, latent_ch=cfg.unet.in_channels,
+                                     text_vocab=cfg.text.vocab,
+                                     text_len=min(cfg.text.max_len, 16), global_batch=2),
+               denoise("latents"), what="2 x 64x64x4 latents, 16 text tokens")
 
-    def run_sd(marks):
-        tcfg = TrainConfig(total_steps=TRAIN_STEPS, log_every=1, checkpoint_every=10 ** 9,
-                           checkpoint_dir=str(ckpt_root / cfg.name), opt=opt, seed=SEED)
-        state, hist = train(model, lambda b, g: model.train_loss(b, g), data, tcfg,
-                            device="cuda", mark=marks,
-                            log=lambda s: log(f"[train] {cfg.name} {s}"))
-        step = make_accumulating_step(lambda b, g: model.train_loss(b, g), opt, 1)
-        return hist, lambda: step(params, state["opt"], batch, SEED, TRAIN_STEPS)
+    # -- Make-A-Video: 2 videos of 16 frames, a microbatch of one (16 frames) ----
+    cfg = MAKE_A_VIDEO
+    hw = cfg.image_size // cfg.latent_down
+    suite_path(cfg, SeededBatches(video=((2, cfg.frames, hw, hw, cfg.unet.in_channels),
+                                         "normal"), text=((2, 16), cfg.text.vocab)),
+               denoise("video"), microbatches=2,
+               what=f"2 x {cfg.frames} x {hw}x{hw}x{cfg.unet.in_channels} video, 16 text "
+                    f"tokens, 2 microbatches of 1 video")
 
-    with phase(cfg.name, "train steps"):
-        summary[cfg.name] = dict(plan=plan, tiers=tiers, **timed_train(
-            cfg.name, f"{sum(p.numel() for p in params.values()) / 1e6:.1f} M params, all "
-            f"trained; 2 x 64x64x4 latents, 16 text tokens", plan, run_sd))
-    launches.update(summary[cfg.name]["launches"])
-    del model, params, batch, run_sd
-    torch.cuda.empty_cache()
+    # -- the token models, text at the prompt length they serve -----------------
+    cfg = PHENAKI
+    S = cfg.frames * cfg.tokens_per_frame
+    suite_path(cfg, SeededBatches(video_tokens=((2, S), cfg.video_vocab),
+                                  text=((2, cfg.text.max_len), cfg.text.vocab)),
+               masked("video_tokens", "masked_loss"),
+               what=f"2 x {cfg.frames} x {cfg.tokens_per_frame} video tokens, "
+                    f"{cfg.text.max_len} text tokens")
+    cfg = MUSE
+    suite_path(cfg, SeededBatches(image_tokens=((2, cfg.image_tokens), cfg.image_vocab),
+                                  text=((2, cfg.text.max_len), cfg.text.vocab)),
+               masked("image_tokens", "token_loss"),
+               what=f"2 x {cfg.image_tokens} image tokens, {cfg.text.max_len} text tokens")
+    cfg = dataclasses.replace(PARTI, n_layers=PARTI_TRAIN_LAYERS)
+    suite_path(cfg, SeededBatches(image_tokens=((2, cfg.image_tokens), cfg.image_vocab),
+                                  text=((2, cfg.text.max_len), cfg.text.vocab)),
+               masked("image_tokens", "token_loss"),
+               what=f"{PARTI_TRAIN_LAYERS} of {PARTI.n_layers} layers; 2 x {cfg.image_tokens} "
+                    f"image tokens (AR, BOS 0), {cfg.text.max_len} text tokens")
 
     # -- olmo-1b through launch/train.py ---------------------------------------
     cfg = get_config("olmo-1b")
@@ -2670,7 +2802,8 @@ def run_train(*, smi: str) -> dict:
     lm_data = SyntheticLMData(vocab=cfg.vocab, seq_len=2048, global_batch=2)
     batch = {k: torch.from_numpy(v).cuda() for k, v in lm_data.batch_at(0).items()}
     plan, tiers, lm_rows = train_path(
-        cfg.name, model, lambda impl: lambda: model.loss(batch, impl=impl), params, smi=smi)
+        cfg.name, model, lambda impl: lambda: model.loss(batch, impl=impl), params, smi=smi,
+        timed=timed)
     rows += lm_rows
     with phase(cfg.name, "train extra grads"):
         extra = []
@@ -2702,6 +2835,7 @@ def run_train(*, smi: str) -> dict:
             cfg.name, "through launch/train.py, with its init; 2 x 2048 tokens", plan,
             run_olmo))
     launches.update(summary[cfg.name]["launches"])
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- restart from a checkpoint, reduced -------------------------------------
@@ -2780,56 +2914,60 @@ def main(only=()) -> int:
     # -- 3-7, per path ----------------------------------------------------------
     t_all = time.perf_counter()
     spatial = ("conv2d", "flash_attention", "groupnorm_silu")
+    # phase 4's rows by call signature: phase 9 reuses the row of a call an
+    # inference path already checked and timed (Muse's and Phenaki's train
+    # forwards run their backbone pass's attention calls)
+    timed: dict = {}
+    path = functools.partial(run_path, smi=smi, timed=timed)
     runs = {
-        STABLE_DIFFUSION.name: lambda: run_path(
-            STABLE_DIFFUSION, tag="main", record_steps=1, smi=smi, kernels=spatial,
+        STABLE_DIFFUSION.name: lambda: path(
+            STABLE_DIFFUSION, tag="main", record_steps=1, kernels=spatial,
             serve_fn=serve_stable_diffusion),
-        MAKE_A_VIDEO.name: lambda: run_path(
-            MAKE_A_VIDEO, tag="main-ttv", record_steps=2, smi=smi, kernels=tuple(SOURCES)),
-        IMAGEN.name: lambda: run_path(IMAGEN, tag="main-sr", record_steps=1, smi=smi,
-                                      kernels=spatial, serve_fn=serve_imagen),
-        PROD_IMAGE.name: lambda: run_path(
-            PROD_IMAGE, tag="main-prod", record_steps=1, smi=smi, kernels=spatial),
-        MUSE.name: lambda: run_path(MUSE, tag="main-muse", record_steps=1, smi=smi,
-                                    kernels=("conv2d", "flash_attention")),
-        PHENAKI.name: lambda: run_path(PHENAKI, tag="main-phenaki", record_steps=1, smi=smi,
-                                       kernels=("flash_attention", "temporal_flash_attention")),
-        LLAMA2_7B.name: lambda: run_path(LLAMA2_7B, tag="main-lm", record_steps=1, smi=smi,
-                                         kernels=("flash_attention",), serve_fn=serve_llama),
+        MAKE_A_VIDEO.name: lambda: path(
+            MAKE_A_VIDEO, tag="main-ttv", record_steps=2, kernels=tuple(SOURCES)),
+        IMAGEN.name: lambda: path(IMAGEN, tag="main-sr", record_steps=1, kernels=spatial,
+                                  serve_fn=serve_imagen),
+        PROD_IMAGE.name: lambda: path(
+            PROD_IMAGE, tag="main-prod", record_steps=1, kernels=spatial),
+        MUSE.name: lambda: path(MUSE, tag="main-muse", record_steps=1,
+                                kernels=("conv2d", "flash_attention")),
+        PHENAKI.name: lambda: path(PHENAKI, tag="main-phenaki", record_steps=1,
+                                   kernels=("flash_attention", "temporal_flash_attention")),
+        LLAMA2_7B.name: lambda: path(LLAMA2_7B, tag="main-lm", record_steps=1,
+                                     kernels=("flash_attention",), serve_fn=serve_llama),
         # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB; the
         # first PARTI_DECODE_STEPS of its 1024 tokens (ms a token is the reading)
-        PARTI.name: lambda: run_path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
-                                     record_steps=1, smi=smi,
-                                     kernels=("conv2d", "flash_attention"),
-                                     decode_steps=PARTI_DECODE_STEPS),
+        PARTI.name: lambda: path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
+                                 record_steps=1, kernels=("conv2d", "flash_attention"),
+                                 decode_steps=PARTI_DECODE_STEPS),
     }
     # the dense assigned LMs in fp32, as LLaMA, with DENSE_LM_NEW new tokens
     # (qwen2-72b, 291 GB in fp32, waits for several cards)
     for arch, layers in DENSE_LMS.items():
         cfg = get_config(arch)
         runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
-            run_path(cfg, tag=f"main-{cfg.name}", record_steps=1, smi=smi,
-                     kernels=("flash_attention",), max_new=DENSE_LM_NEW))
+            path(cfg, tag=f"main-{cfg.name}", record_steps=1, kernels=("flash_attention",),
+                 max_new=DENSE_LM_NEW))
     # the MoE LMs in fp32, as the dense ones, cut to MOE_LMS's layers
     for arch, layers in MOE_LMS.items():
         cfg = get_config(arch)
         runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
-            run_path(cfg, tag=f"main-{cfg.name}", record_steps=1, smi=smi,
-                     kernels=("flash_attention",), max_new=DENSE_LM_NEW))
+            path(cfg, tag=f"main-{cfg.name}", record_steps=1, kernels=("flash_attention",),
+                 max_new=DENSE_LM_NEW))
     # the sub-quadratic LMs in fp32 at full depth; mamba2 launches no hand kernel
     for arch, prompt_len in RECURRENT_LMS.items():
-        runs[arch] = lambda arch=arch, prompt_len=prompt_len: run_path(
-            get_config(arch), tag=f"main-{arch}", record_steps=1, smi=smi,
+        runs[arch] = lambda arch=arch, prompt_len=prompt_len: path(
+            get_config(arch), tag=f"main-{arch}", record_steps=1,
             kernels=() if arch == "mamba2-780m" else ("flash_attention",),
             max_new=DENSE_LM_NEW, prompt_len=prompt_len)
     # the VLM as the dense LMs on token prompts, then its embedding path
     # ([mrope]); the enc-dec model through its own entry points
-    runs["qwen2-vl-2b"] = lambda: run_path(
-        get_config("qwen2-vl-2b"), tag="main-qwen2-vl-2b", record_steps=1, smi=smi,
+    runs["qwen2-vl-2b"] = lambda: path(
+        get_config("qwen2-vl-2b"), tag="main-qwen2-vl-2b", record_steps=1,
         kernels=("flash_attention",), max_new=DENSE_LM_NEW, extra=("mrope", mrope_phase))
     runs["whisper-base"] = lambda: run_encdec_path(get_config("whisper-base"), smi=smi)
     # phase 9: training, full-width SD and olmo-1b, then the reduced restarts
-    runs["train"] = lambda: run_train(smi=smi)
+    runs["train"] = lambda: run_train(smi=smi, timed=timed)
     unknown = set(only) - set(runs) - {"fleet"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")

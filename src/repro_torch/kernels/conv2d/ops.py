@@ -25,7 +25,10 @@ operands, for every operand (``x``, ``w``, ``gn_a``, ``gn_b``, ``bias``,
 as the CUDA kernel does, also on a CPU tensor (its plain version): a
 gradient the backward failed to give is missing on the CPU too.  The
 ``torch`` tier is plain autograd through ``ref.conv2d_ref``.  The temporal
-conv has no ``Function`` yet: only the TTV losses reach it in training.
+conv runs through ``TemporalConv1dFn`` there, the counterpart of the
+reference's ``_tconv_fused`` / ``_tconv_bwd``: the temporal kernel forward
+on the (B, F, H*W, C) view, and for ``x``, ``w`` and ``bias`` the VJP of
+``ref.temporal_conv1d_ref`` recomputed from the saved operands.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ from repro_torch.kernels.conv2d import ref as _ref
 from repro_torch.kernels.tiers import is_fused, resolve_model_impl
 from repro_torch.kernels.vjp import needs_grad, plain_vjp
 
-__all__ = ["Conv2dFn", "affine_from_stats", "conv2d", "groupnorm_affine", "is_fused",
-           "resolve_model_impl", "temporal_conv1d"]
+__all__ = ["Conv2dFn", "TemporalConv1dFn", "affine_from_stats", "conv2d", "groupnorm_affine",
+           "is_fused", "resolve_model_impl", "temporal_conv1d"]
 
 
 def _affine_from_moments(mean, var, scale, bias, *, cpg: int, eps: float):
@@ -124,6 +127,27 @@ def conv2d(
     return _call(_kernel.conv2d, static, *ops)
 
 
+def _tconv_ref4(x4, w, bias):
+    """``ref.temporal_conv1d_ref`` on the kernel's (B, F, N, C) layout."""
+    B, F, N, C = x4.shape
+    return _ref.temporal_conv1d_ref(x4.reshape(B, F, N, 1, C), w, bias).reshape(
+        B, F, N, w.shape[-1])
+
+
+class TemporalConv1dFn(torch.autograd.Function):
+    """The temporal conv with its gradient: the kernel forward on (B, F, N,
+    C), the VJP of ``ref.temporal_conv1d_ref`` backward."""
+
+    @staticmethod
+    def forward(ctx, x4, w, bias):
+        ctx.save_for_backward(x4, w, bias)
+        return _kernel.temporal_conv1d(x4, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(_tconv_ref4, ctx.saved_tensors, (g,), ctx.needs_input_grad)
+
+
 def temporal_conv1d(
     x: torch.Tensor,  # (B, F, H, W, C): conv over the frame axis
     w: torch.Tensor,  # (K, C, C_out)
@@ -131,8 +155,12 @@ def temporal_conv1d(
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
-    if resolve_model_impl(impl) == "kernel":
-        B, F, H, W, C = x.shape
-        y = _kernel.temporal_conv1d(x.reshape(B, F, H * W, C), w, bias)
-        return y.reshape(B, F, H, W, w.shape[-1])
-    return _ref.temporal_conv1d_ref(x, w, bias)
+    if resolve_model_impl(impl) != "kernel":
+        return _ref.temporal_conv1d_ref(x, w, bias)
+    B, F, H, W, C = x.shape
+    x4 = x.reshape(B, F, H * W, C)
+    if needs_grad(x4, w, bias):
+        y = TemporalConv1dFn.apply(x4, w, bias)
+    else:
+        y = _kernel.temporal_conv1d(x4, w, bias)
+    return y.reshape(B, F, H, W, w.shape[-1])

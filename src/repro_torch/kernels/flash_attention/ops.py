@@ -25,8 +25,11 @@ the VJP of ``ref.attention_ref`` recomputed from the saved inputs (GQA,
 ``causal``, ``window`` and ``kv_offset`` included).  The reference's
 Pallas kernel has no VJP; it is differentiated through its plain tiers, so
 the port's gradient is the function's, as there.  The forward runs outside
-autograd on every device (``kernels.vjp``).  ``temporal_attention`` has no
-``Function`` yet: only the TTV losses reach it in training.
+autograd on every device (``kernels.vjp``).  ``temporal_attention``'s
+kernel tier runs through ``TemporalAttentionFn`` there: the temporal kernel
+forward, and for q, k and v the VJP of ``ref.temporal_attention_ref``, the
+permute path the reference trains through (its temporal kernel has no VJP
+either).
 """
 
 from __future__ import annotations
@@ -58,6 +61,24 @@ class FlashAttentionFn(torch.autograd.Function):
         return (None, *plain_vjp(
             lambda q, k, v: _ref.attention_ref(q, k, v, causal=causal, window=window,
                                                scale=scale, kv_offset=kv_offset),
+            ctx.saved_tensors, (g,), ctx.needs_input_grad[1:]))
+
+
+class TemporalAttentionFn(torch.autograd.Function):
+    """Temporal attention with its gradient: the kernel forward on the
+    (B, F, HW, H, D) operands, the VJP of ``ref.temporal_attention_ref``
+    backward."""
+
+    @staticmethod
+    def forward(ctx, scale, q, k, v):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        return _kernel.temporal_flash_attention(q, k, v, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *plain_vjp(
+            lambda q, k, v: _ref.temporal_attention_ref(q, k, v, scale=ctx.scale),
             ctx.saved_tensors, (g,), ctx.needs_input_grad[1:]))
 
 
@@ -135,6 +156,8 @@ def temporal_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     scale = scale if scale is not None else x_q.shape[-1] ** -0.5
-    if resolve_model_impl(impl) == "kernel":
-        return _kernel.temporal_flash_attention(x_q, x_k, x_v, scale=scale)
-    return _ref.temporal_attention_ref(x_q, x_k, x_v, scale=scale)
+    if resolve_model_impl(impl) != "kernel":
+        return _ref.temporal_attention_ref(x_q, x_k, x_v, scale=scale)
+    if needs_grad(x_q, x_k, x_v):
+        return TemporalAttentionFn.apply(scale, x_q, x_k, x_v)
+    return _kernel.temporal_flash_attention(x_q, x_k, x_v, scale=scale)

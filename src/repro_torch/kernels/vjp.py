@@ -1,12 +1,14 @@
 """Gradients of the kernel tier.
 
-The reference has no backward kernel: its fused conv is a ``custom_vjp``
-whose backward is the plain function's VJP, and its attention and
-GroupNorm kernels are differentiated through their plain tiers.  The port's
-kernel-tier ``torch.autograd.Function``s (``conv2d.ops.Conv2dFn``,
-``flash_attention.ops.FlashAttentionFn``,
-``groupnorm_silu.ops.GroupNormSiLUFn``) launch the hand-written kernel
-forward and pull the cotangents back through the plain version here.
+The reference has no backward kernel: its fused conv and temporal conv are
+``custom_vjp``s whose backward is the plain function's VJP, and its
+attention, temporal attention and GroupNorm kernels are differentiated
+through their plain tiers.  The port's kernel-tier
+``torch.autograd.Function``s (``conv2d.ops.Conv2dFn`` and
+``TemporalConv1dFn``, ``flash_attention.ops.FlashAttentionFn`` and
+``TemporalAttentionFn``, ``groupnorm_silu.ops.GroupNormSiLUFn``) launch the
+hand-written kernel forward and pull the cotangents back through the plain
+version here.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ them:
 
 The MaskGIT rule, which the reference writes out twice (``ar_image.py``
 ``decode_parallel`` and ``ttv.py`` ``decode_tokens``), is written once here
-(:func:`maskgit_step`, :func:`parallel_decode`); Phenaki calls it too.
+(:func:`maskgit_step`, :func:`parallel_decode`); Phenaki calls it too.  So
+is the masked-modeling draw of the training losses (:func:`draw_mask`,
+:func:`mask_inputs`; Muse's fraction from U(0.2, 0.9), Phenaki's from
+U(0.3, 0.9)), whose NLL is ``transformer.masked_nll``.
 
 Under an active trace both loops stand one pass for the loop, as the
 reference's: the parallel decode runs one backbone pass, scales its events
@@ -34,7 +37,7 @@ from repro_torch.models.layers.attention import AttentionCache
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.norms import LayerNorm
 from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
-from repro_torch.models.transformer import Block
+from repro_torch.models.transformer import Block, masked_nll
 from repro_torch.models.vae import VQDecoderConfig, VQGANDecoder
 from repro_torch.nn import Module, normal_init
 
@@ -121,6 +124,29 @@ def parallel_decode(backbone: Callable, ctx: torch.Tensor, seq_len: int, steps: 
 
 
 # ---------------------------------------------------------------------------
+# Masked modeling, the training side of MaskGIT
+# ---------------------------------------------------------------------------
+
+
+def draw_mask(shape: tuple, lo: float, hi: float, gen: torch.Generator) -> torch.Tensor:
+    """A (B, S) bool mask drawn on the CPU from ``gen``: a fraction per row
+    from U(lo, hi), then a position is masked where a uniform draw is below
+    its row's fraction (the reference's ``uniform(key, (B, 1), lo, hi)`` and
+    ``uniform(fold_in(key, 1), (B, S)) < frac``)."""
+    B, S = shape
+    frac = lo + (hi - lo) * torch.rand((B, 1), generator=gen)
+    return torch.rand((B, S), generator=gen) < frac
+
+
+def mask_inputs(tokens: torch.Tensor, mask: torch.Tensor, mask_token: int) -> tuple:
+    """(inputs, labels): masked positions take ``mask_token`` in the inputs,
+    and only they keep their label (-1 elsewhere)."""
+    mask = torch.as_tensor(mask, device=tokens.device)
+    return (torch.where(mask, mask_token, tokens),
+            torch.where(mask, tokens, -1))
+
+
+# ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
 
@@ -129,7 +155,10 @@ class ARImageModel(Module):
     """Parameter tree ``{"text", "ctx_proj", "embed", "pos", "final_ln",
     "head", "vq", "layer{i}"}``, as the reference's; the blocks are causal
     for ``decode == "ar"``.  Inference is driven by
-    ``ARImageWorkload.run_stage`` only."""
+    ``ARImageWorkload.run_stage`` only; ``train_loss`` is the reference's
+    (the VQ-GAN decoder takes no part in it)."""
+
+    MASK_FRACTION = (0.2, 0.9)  # Muse's masked share of a row, U(lo, hi)
 
     def __init__(self, cfg: ARImageConfig):
         super().__init__()
@@ -169,6 +198,34 @@ class ARImageModel(Module):
             with tracer.scope(f"layer{i}"):
                 x = block(x, context=ctx, impl=impl)
         return self.head(self.final_ln(x))
+
+    # -- training: next-token AR (Parti) or masked modeling (Muse) -----------
+
+    def train_mask(self, shape: tuple, gen: torch.Generator) -> torch.Tensor | None:
+        """Muse's mask for image tokens of ``shape`` (B, S), drawn on the CPU
+        from ``gen``; Parti draws nothing (None)."""
+        if self.cfg.decode == "ar":
+            return None
+        return draw_mask(shape, *self.MASK_FRACTION, gen)
+
+    def train_loss(self, batch: dict, gen: torch.Generator, *, impl="auto") -> torch.Tensor:
+        """The reference's loss of ``batch`` (``{"image_tokens": (B, S),
+        "text": (B, L)}``), Muse's mask drawn from ``gen``."""
+        mask = self.train_mask(tuple(batch["image_tokens"].shape), gen)
+        return self.token_loss(batch, mask, impl=impl)
+
+    def token_loss(self, batch: dict, mask, *, impl="auto") -> torch.Tensor:
+        """The loss for a given ``mask`` (Muse; None for Parti): Parti
+        predicts every token from its predecessors (inputs shifted right,
+        BOS 0), Muse the masked tokens from the rest; the NLL in fp32 over
+        the counted labels."""
+        tokens = torch.as_tensor(batch["image_tokens"]).long()
+        if self.cfg.decode == "ar":
+            inp, labels = torch.nn.functional.pad(tokens[:, :-1], (1, 0)), tokens
+        else:
+            inp, labels = mask_inputs(tokens, mask, self.mask_token)
+        ctx = self.encode_text(torch.as_tensor(batch["text"], device=tokens.device), impl=impl)
+        return masked_nll(self.backbone(inp, ctx, impl=impl), labels)
 
     def decode_parallel(self, ctx, steps: int, *, impl="auto"):
         """Muse parallel decoding of ``steps`` unmasking steps from a

@@ -15,7 +15,8 @@ the same graph), as the reference's ``ddim_range`` does.
 base UNet.  It draws ``t`` and ``eps`` from a ``torch.Generator`` on the
 CPU (``train_noise``: the same draws on every device) where the reference
 splits a ``PRNGKey``; ``denoise_loss`` takes them as given, so a test can
-hand in the reference's own draws."""
+hand in the reference's own draws.  ``train_noise`` and ``q_sample`` (the
+noised input) serve Make-A-Video's video loss too."""
 
 from __future__ import annotations
 
@@ -33,6 +34,21 @@ from repro_torch.nn import Module
 def ddpm_alphas(n_train_steps: int = 1000, device="cpu") -> torch.Tensor:
     betas = torch.linspace(1e-4, 0.02, n_train_steps, dtype=torch.float32, device=device)
     return torch.cumprod(1.0 - betas, dim=0)
+
+
+def q_sample(z0: torch.Tensor, t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """The DDPM noised input ``sqrt(a_t) z0 + sqrt(1 - a_t) eps``, ``a_t``
+    (``t`` (B,) into ``ddpm_alphas``) broadcast over ``z0``'s other axes."""
+    a_t = ddpm_alphas(device=z0.device)[t].reshape(-1, *[1] * (z0.dim() - 1))
+    return torch.sqrt(a_t) * z0 + torch.sqrt(1.0 - a_t) * eps
+
+
+def train_noise(shape: tuple, gen: torch.Generator) -> tuple:
+    """``(t, eps)`` for a batch of ``shape`` (B, ...): timesteps uniform in
+    [0, 1000) and standard normal noise, in fp32, drawn on the CPU from
+    ``gen``."""
+    t = torch.randint(0, 1000, (shape[0],), generator=gen)
+    return t, torch.randn(shape, generator=gen, dtype=torch.float32)
 
 
 def ddim_timesteps(total_steps: int) -> list[int]:
@@ -123,12 +139,7 @@ class DiffusionPipeline(Module):
     def sr_unets(self) -> list:
         return [getattr(self, f"sr{i}") for i in range(len(self.cfg.sr_stages))]
 
-    def train_noise(self, shape: tuple, gen: torch.Generator) -> tuple:
-        """``(t, eps)`` for latents of ``shape`` (B, h, w, C): timesteps
-        uniform in [0, 1000) and standard normal noise, in fp32, drawn on the
-        CPU from ``gen``."""
-        t = torch.randint(0, 1000, (shape[0],), generator=gen)
-        return t, torch.randn(shape, generator=gen, dtype=torch.float32)
+    train_noise = staticmethod(train_noise)
 
     def train_loss(self, batch: dict, gen: torch.Generator, *, impl="auto") -> torch.Tensor:
         """Denoising loss on the base UNet of ``batch``: ``{"latents": (B,
@@ -146,8 +157,7 @@ class DiffusionPipeline(Module):
         z0 = torch.as_tensor(batch["latents"]).float()
         dev = z0.device
         t, eps = torch.as_tensor(t).to(dev).long(), torch.as_tensor(eps).to(dev).float()
-        a_t = ddpm_alphas(device=dev)[t][:, None, None, None]
-        x_t = torch.sqrt(a_t) * z0 + torch.sqrt(1.0 - a_t) * eps
+        x_t = q_sample(z0, t, eps)
         ctx = self.text(torch.as_tensor(batch["text"], device=dev), impl=impl)
         pred = self.unet(x_t.to(self.cfg.unet.dtype), t.float(), ctx, impl=impl)
         return torch.mean((pred.float() - eps) ** 2)

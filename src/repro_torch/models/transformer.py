@@ -40,7 +40,8 @@ does.  The VLM (``embed_inputs``, ``mrope_sections``) takes embeddings
 streams); its ``decode_step`` takes (B, 1, d) embeddings or (B, 1) tokens.
 
 ``TransformerLM.loss`` is the reference's training loss: the masked NLL of
-the labels (labels < 0 masked) plus the MoE layers' auxiliary losses, from
+the labels (labels < 0 masked; :func:`masked_nll`, which the image and
+video token models' losses call too) plus the MoE layers' auxiliary losses, from
 ``forward_train`` (the reference's ``forward``: logits and the summed
 auxiliary loss), each layer optionally rematerialized (``remat``:
 ``none``, ``dots`` saving the matmul outputs, ``full`` saving nothing),
@@ -85,6 +86,17 @@ from repro_torch.nn import Module, layer_views, stack_params
 # each recurrent block type: its state's key and type
 RECURRENT = {"mamba2": ("ssm", Mamba2State), "rglru": ("rnn", RGLRUState)}
 BLOCK_TYPES = ("dense", "moe", "local_attn", *RECURRENT)
+
+
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean negative log-likelihood of ``labels`` under ``logits`` (B,
+    S, V), in fp32, over the positions whose label is >= 0: the sum over
+    ``max(count, 1)``, so a batch with no such position gives 0."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - label_logit) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def _norm(c: LMConfig, name: str) -> Module:
@@ -394,13 +406,7 @@ class TransformerLM(Module):
             batch.get("tokens"), embeds=batch.get("embeds"),
             enc_embeds=batch.get("enc_embeds"), mrope_positions=batch.get("mrope_positions"),
             impl=impl, remat=remat)
-        labels = torch.as_tensor(batch["labels"], device=logits.device)
-        logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        label_logit = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
-        mask = (labels >= 0).float()
-        nll = ((logz - label_logit) * mask).sum() / mask.sum().clamp(min=1.0)
-        return nll + aux
+        return masked_nll(logits, torch.as_tensor(batch["labels"], device=logits.device)) + aux
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return self.embed.attend(x) if self.cfg.tie_embeddings else self.lm_head(x)

@@ -8,9 +8,14 @@
   factorized spatial / temporal attention, sampled by parallel decoding
   (the MaskGIT rule of ``models/ar_image.py``).
 
-Inference only; the training losses come with a later slice.  Tracer
-events, names and scopes are the reference's: ``temporal/<block>`` around a
-VideoUNet site's temporal layers, ``layer<i>`` around a Phenaki layer.
+Both train with the reference's losses: Make-A-Video the DDPM
+noise-prediction MSE on (B, F, H, W, C) video (``train_noise`` draws ``t``
+and ``eps`` on the CPU, ``denoise_loss`` takes them as given), Phenaki the
+masked cross-entropy on video tokens (``train_mask`` draws the mask on the
+CPU, ``masked_loss`` takes it as given), so a test can hand in the
+reference's own draws.  Tracer events, names and scopes are the
+reference's: ``temporal/<block>`` around a VideoUNet site's temporal
+layers, ``layer<i>`` around a Phenaki layer.
 """
 
 from __future__ import annotations
@@ -24,12 +29,14 @@ import torch
 from repro_torch.core import tracer
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.tiers import event_impl
-from repro_torch.models.ar_image import parallel_decode
+from repro_torch.models.ar_image import draw_mask, mask_inputs, parallel_decode
+from repro_torch.models.diffusion import q_sample, train_noise
 from repro_torch.models.layers.attention import Attention
 from repro_torch.models.layers.basic import Dense, Embedding
 from repro_torch.models.layers.conv import TemporalConv1D
 from repro_torch.models.layers.norms import LayerNorm
 from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
+from repro_torch.models.transformer import masked_nll
 from repro_torch.models.unet import UNet2D, UNetConfig, _record_pointwise, unet_plan
 from repro_torch.nn import Module, normal_init
 
@@ -154,6 +161,27 @@ class MakeAVideoPipeline(Module):
     def encode_text(self, tokens, *, impl="auto"):
         return self.text(tokens, impl=impl)
 
+    train_noise = staticmethod(train_noise)
+
+    def train_loss(self, batch: dict, gen: torch.Generator, *, impl="auto") -> torch.Tensor:
+        """Denoising loss of ``batch`` (``{"video": (B, F, H, W, C), "text":
+        (B, L)}``), noise from ``gen``."""
+        t, eps = self.train_noise(tuple(batch["video"].shape), gen)
+        return self.denoise_loss(batch, t, eps, impl=impl)
+
+    def denoise_loss(self, batch: dict, t, eps, *, impl="auto") -> torch.Tensor:
+        """The reference's formula for given ``t`` (B,) and ``eps``: the
+        noised video in the config's dtype and ``t`` in fp32 through the
+        VideoUNet (which repeats ``t`` per frame), then the fp32 mean squared
+        error of its noise prediction."""
+        v0 = torch.as_tensor(batch["video"]).float()
+        dev = v0.device
+        t, eps = torch.as_tensor(t).to(dev).long(), torch.as_tensor(eps).to(dev).float()
+        x_t = q_sample(v0, t, eps)
+        ctx = self.text(torch.as_tensor(batch["text"], device=dev), impl=impl)
+        pred = self.vunet(x_t.to(self.cfg.dtype), t.float(), ctx, impl=impl)
+        return torch.mean((pred.float() - eps) ** 2)
+
 
 # ---------------------------------------------------------------------------
 # Phenaki: masked transformer over video tokens, factorized attention
@@ -247,6 +275,28 @@ class PhenakiModel(Module):
             with tracer.scope(f"layer{i}"):
                 x = getattr(self, f"layer{i}")(x, ctx, impl=impl)
         return self.head(self.final_ln(x))
+
+    MASK_FRACTION = (0.3, 0.9)  # the masked share of a row, U(lo, hi)
+
+    def train_mask(self, shape: tuple, gen: torch.Generator) -> torch.Tensor:
+        """The mask for video tokens of ``shape`` (B, F*HW), drawn on the CPU
+        from ``gen``."""
+        return draw_mask(shape, *self.MASK_FRACTION, gen)
+
+    def train_loss(self, batch: dict, gen: torch.Generator, *, impl="auto") -> torch.Tensor:
+        """The reference's loss of ``batch`` (``{"video_tokens": (B, F*HW),
+        "text": (B, L)}``), the mask drawn from ``gen``."""
+        return self.masked_loss(batch, self.train_mask(tuple(batch["video_tokens"].shape), gen),
+                                impl=impl)
+
+    def masked_loss(self, batch: dict, mask, *, impl="auto") -> torch.Tensor:
+        """Cross-entropy of the masked video tokens for a given ``mask``:
+        masked inputs take the mask token, the NLL in fp32 over the masked
+        positions."""
+        tokens = torch.as_tensor(batch["video_tokens"]).long()
+        ctx = self.encode_text(torch.as_tensor(batch["text"], device=tokens.device), impl=impl)
+        inp, labels = mask_inputs(tokens, mask, self.mask_token)
+        return masked_nll(self.backbone(inp, ctx, impl=impl), labels)
 
     def decode_tokens(self, ctx, steps: int, *, impl="auto"):
         """MaskGIT parallel decode of ``steps`` unmasking steps from a

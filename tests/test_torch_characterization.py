@@ -345,7 +345,9 @@ def test_kernel_category_table(name, category):
 def _fake_profile(events, host=()):
     """A profile's events: device ``(name, start, end, is_range, kind)`` with
     correlation ids 1, 2, ... in order, and host ``(name, start, end,
-    is_range, id)``: ranges and runtime launch calls."""
+    is_range, id)``: ranges and runtime launch calls; times in us.  Both of
+    the profiler's views of them: ``events()`` (``FunctionEvent``s) and its
+    kineto results (accessors, times in ns)."""
     dt = torch.autograd.DeviceType
     dev = [SimpleNamespace(name=n, device_type=dt.CUDA, is_user_annotation=ann,
                            activity_type=kind, id=i + 1,
@@ -354,7 +356,19 @@ def _fake_profile(events, host=()):
     cpu = [SimpleNamespace(name=n, device_type=dt.CPU, is_user_annotation=ann, id=i,
                            time_range=SimpleNamespace(start=s, end=t))
            for n, s, t, ann, i in host]
-    return SimpleNamespace(events=lambda: cpu + dev)
+
+    def kineto(e):  # a build without activity types (torch 2.11) has no accessor
+        kind = getattr(e, "activity_type", "cpu_op")
+        return SimpleNamespace(
+            name=lambda: e.name, device_type=lambda: e.device_type,
+            is_user_annotation=lambda: e.is_user_annotation,
+            start_ns=lambda: round(e.time_range.start * 1e3),
+            end_ns=lambda: round(e.time_range.end * 1e3),
+            **({} if kind is None else {"activity_type": lambda: kind}))
+
+    results = SimpleNamespace(events=lambda: [kineto(e) for e in cpu + dev])
+    return SimpleNamespace(events=lambda: cpu + dev,
+                           profiler=SimpleNamespace(kineto_results=results))
 
 
 def test_busy_idle_and_categories_of_a_profile():
@@ -377,6 +391,17 @@ def test_busy_idle_and_categories_of_a_profile():
     hist = profiler_analysis.op_histogram(prof)
     assert hist["void fa_kernel<float, 64>(Params)"] == {"ms": 1.0, "launches": 1.0}
     assert list(hist)[-1] == "Memset (Device)"
+
+
+def test_busy_counts_every_device_event_but_ranges_where_events_carry_no_kind():
+    prof = _fake_profile([("void fa_kernel<float, 64>(Params)", 0.0, 10.0, False, None),
+                          ("denoise", 0.0, 40.0, True, None),
+                          ("Memcpy DtoD (Device -> Device)", 20.0, 30.0, False, None)])
+    b = profiler_analysis.busy(prof, window_ms=1.0)
+    assert b["launches"] == 2 and b["busy_ms"] == pytest.approx(0.02)
+    assert len(profiler_analysis.device_events(prof)) == 2
+    assert list(profiler_analysis.op_histogram(prof)) == [
+        "void fa_kernel<float, 64>(Params)", "Memcpy DtoD (Device -> Device)"]
 
 
 def test_device_time_by_scope_follows_the_launch():

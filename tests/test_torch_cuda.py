@@ -955,6 +955,12 @@ def test_profiler_analysis_attributes_the_hand_kernels(h100):
     assert scopes.get("stage", 0) >= 0.9 * (cats["conv"] + cats["attention"]), scopes
     b = pa.busy(prof, window_ms=1e3)
     assert 0 < b["busy_ms"] < 1e3 and b["launches"] >= 2
+    # busy and the histogram read the kineto results, the scopes the
+    # FunctionEvents: both views hold the same work
+    events = pa.device_events(prof)
+    assert b["launches"] == len(events) == sum(v["launches"] for v in hist.values())
+    assert sum(v["ms"] for v in hist.values()) == pytest.approx(
+        sum(e.time_range.end - e.time_range.start for e in events) / 1e3, rel=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -1061,6 +1067,42 @@ def test_groupnorm_function_grads_on_the_card_match_plain(h100, shape):
         [x, scale, bias], cot, "groupnorm_silu")
 
 
+# The temporal Functions at a train microbatch of one Make-A-Video video (B·F
+# = 16 frames): its three temporal sites' (B, F, N, C) conv inputs and (B, F,
+# HW, H, D) attention inputs, and Phenaki's F = 11 attention
+GRAD_TCONV_SHAPES = [(1, 16, 1024, 640), (1, 16, 256, 1280), (1, 16, 64, 1280)]
+GRAD_TATTN_SHAPES = [(1, 16, 1024, 10, 64), (1, 16, 256, 20, 64), (1, 16, 64, 20, 64),
+                     (2, 11, 256, 24, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GRAD_TCONV_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_temporal_conv_function_grads_on_the_card_match_plain(h100, shape):
+    from repro_torch.kernels.conv2d import ops as conv_ops
+
+    B, F, N, C = shape
+    rng = np.random.default_rng(6)
+    x, w, b = _on(h100, torch.float32, rng.standard_normal((B, F, N, 1, C)).astype(np.float32),
+                  (0.05 * rng.standard_normal((3, C, C))).astype(np.float32),
+                  (0.1 * rng.standard_normal(C)).astype(np.float32))
+    cot = (torch.randn_like(x),)
+    _function_vs_plain(lambda x, w, b: conv_ops.temporal_conv1d(x, w, b, impl="kernel"),
+                       lambda x, w, b: conv_ops.temporal_conv1d(x, w, b, impl="torch"),
+                       [x, w, b], cot, "temporal_conv1d")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GRAD_TATTN_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_temporal_attention_function_grads_on_the_card_match_plain(h100, shape):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = _on(h100, torch.float32, *_tattn_inputs(shape, seed=12))
+    cot = (torch.randn_like(q),)
+    _function_vs_plain(lambda q, k, v: fa_ops.temporal_attention(q, k, v, impl="kernel"),
+                       lambda q, k, v: fa_ops.temporal_attention(q, k, v, impl="torch"),
+                       [q, k, v], cot, "temporal_flash_attention")
+
+
 def _step_grads(model, loss_of):
     from repro_torch.nn import trainable
 
@@ -1071,7 +1113,7 @@ def _step_grads(model, loss_of):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", ["tiny-sd", "olmo-1b"])
+@pytest.mark.parametrize("which", ["tiny-sd", "olmo-1b", "make-a-video"])
 def test_reduced_train_step_kernel_tier_matches_torch_tier(h100, which):
     """A reduced model's loss and every leaf's gradient on the card: the
     kernel tier (the Functions, the fused structure) against the torch
@@ -1083,6 +1125,7 @@ def test_reduced_train_step_kernel_tier_matches_torch_tier(h100, which):
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.nn import init_module
     from repro_torch.training.trainer import step_generator
+    from repro_torch.workload import reduced_workload
 
     if which == "tiny-sd":
         cfg = TINY_TTI_CASCADE
@@ -1093,6 +1136,22 @@ def test_reduced_train_step_kernel_tier_matches_torch_tier(h100, which):
         batch = {k: torch.from_numpy(v).to(h100) for k, v in b.items()}
         t, eps = model.train_noise(tuple(batch["latents"].shape), step_generator(0, 0))
         kernels = ("conv2d", "flash_attention", "groupnorm_silu")
+
+        def loss_of(impl):
+            return lambda: model.denoise_loss(batch, t, eps, impl=impl)
+    elif which == "make-a-video":
+        wl = reduced_workload(get_config("make-a-video"))
+        cfg = wl.cfg
+        model = wl.init(0, h100)
+        rng = np.random.default_rng(0)
+        video = rng.standard_normal((2, cfg.frames, cfg.image_size, cfg.image_size,
+                                     cfg.unet.in_channels)).astype(np.float32)
+        batch = {"video": torch.from_numpy(video).to(h100),
+                 "text": torch.from_numpy(rng.integers(0, cfg.text.vocab,
+                                                       (2, cfg.text.max_len))).to(h100)}
+        t, eps = model.train_noise(tuple(batch["video"].shape), step_generator(0, 0))
+        kernels = ("conv2d", "flash_attention", "groupnorm_silu", "temporal_conv1d",
+                   "temporal_flash_attention")
 
         def loss_of(impl):
             return lambda: model.denoise_loss(batch, t, eps, impl=impl)

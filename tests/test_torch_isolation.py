@@ -55,7 +55,8 @@ def test_checked_files_include_the_ttv_slice():
                 "configs/recurrentgemma_9b.py", "configs/whisper_base.py",
                 "configs/qwen2_vl_2b.py", "launch/steps.py", "launch/train.py",
                 "training/optimizer.py", "training/trainer.py", "checkpoint/checkpointer.py",
-                "runtime/fault_tolerance.py", "data/pipeline.py", "kernels/vjp.py"):
+                "runtime/fault_tolerance.py", "data/pipeline.py", "kernels/vjp.py",
+                "runtime/straggler.py", "training/compression.py"):
         assert port / rel in PORT_FILES
 
 
