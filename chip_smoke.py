@@ -1274,7 +1274,7 @@ def generate_states(wl, model, tokens, device):
 # 2 sum in other orders, through 50 DDIM steps and the VAE.
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
 SERVE_WIDTH = 32  # the engine's first bucket: every prompt is padded to it
-SD_LAUNCHER_REQUESTS = 16
+SD_LAUNCHER_REQUESTS = 8
 # LLaMA served as the paper's workload: 2048-token prompts (one bucket) and
 # 64 new tokens; a backlog of 16 for the rate and the latency percentiles,
 # 4 of them (one batch) for the route, sampling and generate checks
@@ -1447,7 +1447,7 @@ def padded(wl, prompts) -> list:
 
 
 def serve_stable_diffusion(wl, model, rows) -> dict:
-    """The launcher in a subprocess (16 requests, cascade, poisson arrivals),
+    """The launcher in a subprocess (8 requests, cascade, poisson arrivals),
     then 4 of its prompts on the pod and cascade routes and through
     ``generate`` with the same rids, held to one another."""
     from repro_torch.launch.serve import draw_prompts
@@ -2859,8 +2859,270 @@ def run_train(*, smi: str, timed: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the mesh (a world of one, NCCL, a 1x1 (data, model) mesh)
+# ---------------------------------------------------------------------------
+
+MESH_SD_REQUESTS = 4  # SD on the pod route, pods of 2 (the main path's batch)
+MESH_SD_STEPS = 10  # of SD's 50 DDIM steps: DTensor's host cost is ~4x a step
+MESH_LM_PROMPT, MESH_LM_NEW = 2048, 16  # olmo-1b on the lm route, 2 requests
+MESH_TRAIN_STEPS = 2
+
+
+def mesh_boundaries(mesh) -> list[dict]:
+    """Each kernel's dispatcher on DTensor operands of ``mesh`` at one
+    full-width path shape (Stable Diffusion's for the three spatial kernels,
+    Make-A-Video's for the temporal two), against its plain version on the
+    same inputs; the call through the boundary and the plain call timed.
+    Fails unless the wrapper launched its kernel."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv2d import ops as conv_ops
+    from repro_torch.kernels.conv2d import ref as conv_ref
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.kernels.flash_attention import ref as attn_ref
+    from repro_torch.kernels.groupnorm_silu import ops as gn_ops
+    from repro_torch.kernels.groupnorm_silu import ref as gn_ref
+    from repro_torch.parallel.mesh_exec import mesh_scope
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(s, generator=g, device="cuda") * scale
+
+    def dt(x):
+        return distribute_tensor(x, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+
+    x, w, b = rn(2, 64, 64, 320), rn(3, 3, 320, 320, scale=0.02), rn(320)
+    ga, gb, temb = rn(2, 320), rn(2, 320), rn(2, 320)
+    q, k, v = rn(2, 4096, 8, 40), rn(2, 4096, 8, 40), rn(2, 4096, 8, 40)
+    x3, sc, bi = rn(2, 4096, 320), rn(320), rn(320)
+    tq, tk, tv = rn(2, 16, 1024, 5, 64), rn(2, 16, 1024, 5, 64), rn(2, 16, 1024, 5, 64)
+    x5, wt, bt = rn(2, 16, 32, 32, 320), rn(3, 320, 320, scale=0.03), rn(320)
+    cases = {
+        "conv2d": ("2x64x64x320 -> 320, 3x3, GN producer, temb, stats", F32,
+                   lambda: conv_ops.conv2d(dt(x), dt(w), bias=dt(b), gn_affine=(dt(ga), dt(gb)),
+                                           temb=dt(temb), emit_stats=True, impl="auto"),
+                   lambda: conv_ref.conv2d_ref(x, w, gn_a=ga, gn_b=gb, bias=b, temb=temb,
+                                               emit_stats=True)),
+        "flash_attention": ("q/k/v 2x4096x8x40", F32,
+                            lambda: attn_ops.attention(dt(q), dt(k), dt(v), impl="auto"),
+                            lambda: attn_ref.attention_ref(q, k, v, scale=40 ** -0.5)),
+        "groupnorm_silu": ("2x4096x320, 32 groups", F32,
+                           lambda: gn_ops.groupnorm_silu(dt(x3), dt(sc), dt(bi), groups=32,
+                                                         impl="auto"),
+                           lambda: gn_ref.groupnorm_silu_onepass_ref(x3, sc, bi, groups=32)),
+        "temporal_flash_attention": (
+            "2x16x1024x5x64", TEMPORAL_F32,
+            lambda: attn_ops.temporal_attention(dt(tq), dt(tk), dt(tv), impl="auto"),
+            lambda: attn_ref.temporal_attention_ref(tq, tk, tv, scale=64 ** -0.5)),
+        "temporal_conv1d": ("2x16x32x32x320, 3 taps", F32,
+                            lambda: conv_ops.temporal_conv1d(dt(x5), dt(wt), dt(bt), impl="auto"),
+                            lambda: conv_ref.temporal_conv1d_ref(x5, wt, bt)),
+    }
+    rows = []
+    with mesh_scope(mesh):
+        for name, (shape, tol, boundary, plain) in cases.items():
+            t0 = time.perf_counter()
+            before = build.launches[name]
+            out = boundary()
+            if build.launches[name] == before:
+                raise AssertionError(f"[mesh] {name}: the boundary call launched no kernel")
+            local = (tuple(o.to_local() for o in out) if isinstance(out, tuple)
+                     else out.to_local())
+            err = _compare(f"[mesh] {name} boundary", None, local, plain(), tol)
+            ms, plain_ms = time_ms(boundary), time_ms(plain)
+            rows.append(dict(kernel=name, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+            log(f"[mesh] boundary {name} ({shape}): max abs err {err:.3e} against its plain "
+                f"version; {ms:.3f} ms through the DTensor boundary (DTensor operands in and "
+                f"out), plain {plain_ms:.3f} ms; the check {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def mesh_serve(wl, model, prompts, mesh, max_new: int = 0, **cfg_kw) -> dict:
+    """``prompts`` through a ``ServeEngine`` (mesh-free, or on ``mesh``):
+    the results on the host, the wall s and each kernel's launches (counts
+    set to 0 just before, read just after)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.telemetry import validate_engine_stats
+
+    eng = ServeEngine(wl, model, ServeConfig(mesh=mesh, **cfg_kw))
+    torch.cuda.synchronize()
+    build.launches.clear()
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(rid, p, max_new)
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = collections.Counter(build.launches)
+    validate_engine_stats(eng.stats, eng.route)
+    return dict(results={r: torch.as_tensor(np.asarray(results[r].cpu() if isinstance(
+        results[r], torch.Tensor) else results[r])) for r in sorted(results)}, wall=wall,
+                launches=launches, stats=eng.stats)
+
+
+def run_mesh(*, smi: str, timed: dict | None = None, olmo_step1: float | None = None) -> dict:
+    """Phase 10: the port's multi-GPU layer on one card, a world of one
+    (NCCL) and a 1x1 (data, model) mesh: each kernel through its DTensor
+    boundary; Stable Diffusion at full width on the pod route
+    (``MESH_SD_REQUESTS`` requests, ``MESH_SD_STEPS`` DDIM steps) and
+    olmo-1b on the lm route through
+    ``ServeEngine(mesh=...)`` against the mesh-free engine on the same
+    params; ``launch/train.py --mesh debug --profile fsdp``, step 1's loss
+    against the mesh-free step (phase 9's, ``olmo_step1``, else a mesh-free
+    step here).  ``[mesh]`` lines give each part's wall time beside the
+    mesh-free one: DTensor's host cost on one card."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.suite import STABLE_DIFFUSION
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import sharding as shlib
+    from repro_torch.workload import workload_for
+
+    timed = {} if timed is None else timed
+    with phase("mesh", "world"):
+        mesh = make_debug_mesh(1, 1, device="cuda")  # NCCL: a failed init raises
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"[mesh] the world runs {backend}, not NCCL")
+        log(f"[mesh] world of {dist.get_world_size()} ({backend}), mesh "
+            f"{shlib.mesh_shape(mesh)} on {mesh.device_type}")
+    with phase("mesh", "boundaries"):
+        boundary = mesh_boundaries(mesh)
+    summary, launches = {"boundaries": boundary}, collections.Counter()
+
+    # -- Stable Diffusion on the pod route ------------------------------------------
+    wl = workload_for(dataclasses.replace(STABLE_DIFFUSION, denoise_steps=MESH_SD_STEPS))
+    with phase("mesh", "sd init"):
+        model = wl.init(SEED, "cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, wl.prompt_vocab, size=wl.max_prompt_len)
+               for _ in range(MESH_SD_REQUESTS)]
+    rec = Recorder()
+    with phase("mesh", "sd serve"):
+        free = mesh_serve(wl, model, prompts, None, pod_size=2)
+        orig_run_stage = wl.run_stage
+
+        def run_stage(params, stage, *a, **k):
+            rec.stage = stage.name
+            return orig_run_stage(params, stage, *a, **k)
+
+        wl.run_stage = run_stage
+        try:
+            with recording(rec):
+                on = mesh_serve(wl, model, prompts, mesh, pod_size=2)
+        finally:
+            del wl.run_stage
+    err = max(max_err(on["results"][r], free["results"][r]) for r in free["results"])
+    scale = max(float(v.abs().max()) for v in free["results"].values())
+    bitwise = all(torch.equal(on["results"][r], free["results"][r]) for r in free["results"])
+    assert_close("[mesh] sd", torch.stack(list(on["results"].values())),
+                 torch.stack(list(free["results"].values())), F32)
+    if on["launches"] != free["launches"]:
+        raise AssertionError(f"[mesh] sd launches {dict(on['launches'])} on the mesh, "
+                             f"{dict(free['launches'])} mesh-free")
+    for name in ("conv2d", "flash_attention", "groupnorm_silu"):
+        if not on["launches"].get(name):
+            raise AssertionError(f"[mesh] sd: {name} was not launched on the mesh")
+    launches.update(on["launches"])
+    ms = on["stats"]["mesh"]
+    summary["sd"] = dict(wall_s=on["wall"], free_wall_s=free["wall"], max_abs_err=err,
+                         scale=scale, bitwise=bitwise, launches=dict(on["launches"]),
+                         tp_coverage=ms["params"]["tp_coverage"])
+    log(f"[mesh] sd pod route, {MESH_SD_REQUESTS} requests at full width (pods of 2), "
+        f"{MESH_SD_STEPS} DDIM steps: "
+        f"{on['wall']:.2f} s on the mesh, {free['wall']:.2f} s mesh-free "
+        f"({on['wall'] / free['wall']:.2f}x); outputs max abs err {err:.3e} (scale "
+        f"{scale:.3f}), bit for bit equal: {bitwise}; launches {dict(on['launches'])}; "
+        f"mesh {ms['axes']}, TP coverage {ms['params']['tp_coverage']:.1%}")
+    passes = {st: 1 for c in rec.calls.values() for st in c["counts"]}
+    with phase("mesh", "sd kernels"):
+        rows = check_kernels(rec, passes, passes, timed)
+    del model, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- olmo-1b on the lm route --------------------------------------------------
+    cfg = get_config("olmo-1b")
+    wl = workload_for(cfg)
+    with phase("mesh", "olmo init"):
+        model = wl.init(SEED, "cuda")
+    prompts = [rng.integers(0, wl.prompt_vocab, size=MESH_LM_PROMPT) for _ in range(2)]
+    kw = dict(max_batch=2, buckets=(MESH_LM_PROMPT,), max_len=MESH_LM_PROMPT + MESH_LM_NEW)
+    with phase("mesh", "olmo serve"):
+        free = mesh_serve(wl, model, prompts, None, MESH_LM_NEW, **kw)
+        on = mesh_serve(wl, model, prompts, mesh, MESH_LM_NEW, **kw)
+    same = all(torch.equal(on["results"][r], free["results"][r]) for r in free["results"])
+    if not same or not on["launches"].get("flash_attention"):
+        raise AssertionError(f"[mesh] olmo-1b: tokens equal {same}, launches "
+                             f"{dict(on['launches'])}")
+    launches.update(on["launches"])
+    summary["olmo"] = dict(wall_s=on["wall"], free_wall_s=free["wall"], tokens_equal=same,
+                           launches=dict(on["launches"]))
+    log(f"[mesh] olmo-1b lm route, 2 x {MESH_LM_PROMPT} + {MESH_LM_NEW} tokens: "
+        f"{on['wall']:.2f} s on the mesh, {free['wall']:.2f} s mesh-free "
+        f"({on['wall'] / free['wall']:.2f}x); greedy tokens equal: {same}; rid 0 "
+        f"{on['results'][0][:8].tolist()}...")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- launch/train.py on the mesh, FSDP -------------------------------------
+    from repro_torch.kernels import build
+
+    args = ["--arch", "olmo-1b", "--batch", "2", "--seq", "2048"]
+    ckpt = Path(tempfile.mkdtemp(prefix="mesh-train-", dir=OUT_DIR))
+    with phase("mesh", "olmo train"):
+        if olmo_step1 is None:  # phase 9 did not run: the mesh-free step here
+            t0 = time.perf_counter()
+            _, _, hist = train_launcher.main(args + ["--steps", "1", "--ckpt-dir",
+                                                     str(ckpt / "free")], log=lambda s: None)
+            olmo_step1, free_s = hist[0], time.perf_counter() - t0
+        else:
+            free_s = None
+        build.launches.clear()
+        t0 = time.perf_counter()
+        _, _, hist = train_launcher.main(
+            args + ["--steps", str(MESH_TRAIN_STEPS), "--mesh", "debug", "--profile", "fsdp",
+                    "--ckpt-dir", str(ckpt / "mesh")],
+            log=lambda s: log(f"[mesh] olmo-1b train {s}"))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = collections.Counter(build.launches)
+        shlib.set_profile("2d")
+    shutil.rmtree(ckpt)
+    rel = abs(hist[0] - olmo_step1) / abs(olmo_step1)
+    if rel > TRAIN_LOSS_RTOL or not np.all(np.isfinite(hist)) or \
+            not train_launches.get("flash_attention"):
+        raise AssertionError(f"[mesh] olmo-1b train: step 1 loss {hist[0]} against "
+                             f"{olmo_step1} mesh-free, launches {dict(train_launches)}")
+    launches.update(train_launches)
+    summary["train"] = dict(losses=hist, step1_mesh_free=olmo_step1, step1_rel_err=rel,
+                            wall_s=train_s, free_wall_s=free_s,
+                            launches=dict(train_launches))
+    log(f"[mesh] olmo-1b launch/train.py --mesh debug --profile fsdp, {MESH_TRAIN_STEPS} steps "
+        f"of 2 x 2048 tokens (with its init): {train_s:.2f} s; step 1 loss {hist[0]:.6f} "
+        f"against {olmo_step1:.6f} mesh-free (rel err {rel:.2e}); losses {hist}")
+    dist.destroy_process_group()
+    return dict(rows=rows, launches=dict(launches), summary=summary)
+
+
+# ---------------------------------------------------------------------------
 # Main
 # ---------------------------------------------------------------------------
+
+
+def olmo_step1(paths: dict) -> float | None:
+    """Phase 9's olmo-1b step 1 loss (through ``launch/train.py``), where
+    phase 9 ran."""
+    train = paths.get("train")
+    return None if train is None else train["summary"]["olmo-1b"]["losses"][0]
 
 
 def main(only=()) -> int:
@@ -2968,17 +3230,25 @@ def main(only=()) -> int:
     runs["whisper-base"] = lambda: run_encdec_path(get_config("whisper-base"), smi=smi)
     # phase 9: training, full-width SD and olmo-1b, then the reduced restarts
     runs["train"] = lambda: run_train(smi=smi, timed=timed)
+    # phase 10: the mesh, after phase 9 (whose olmo-1b step 1 it compares with)
+    runs["mesh"] = lambda: run_mesh(smi=smi, timed=timed, olmo_step1=olmo_step1(paths))
     unknown = set(only) - set(runs) - {"fleet"}
     if unknown:
         raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")
-    paths = {name: run() for name, run in runs.items() if not only or name in only}
+    paths: dict = {}
+    for name, run in runs.items():
+        if not only or name in only:
+            paths[name] = run()
     trained = paths.pop("train", None)
+    meshed = paths.pop("mesh", None)
     kernels = summarize(paths)
     if trained is not None:
         kernels += summarize({"train": trained}, suffix=" [train]")
+    if meshed is not None:
+        kernels += summarize({"mesh": meshed}, suffix=" [mesh]")
     paths_s = time.perf_counter() - t_all
     log(f"[total] {len(paths)} paths" + ("" if trained is None else " and training")
-        + f" in {paths_s:.1f} s")
+        + ("" if meshed is None else " and the mesh") + f" in {paths_s:.1f} s")
     # -- 8b. fleet serving --------------------------------------------------------
     fleet = None
     if not only or "fleet" in only:
@@ -2987,6 +3257,7 @@ def main(only=()) -> int:
     summary = dict(device=smi, kind=kind, paths_s=paths_s, sass_mma=mma,
                    paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels,
                    train=None if trained is None else trained["summary"],
+                   mesh=None if meshed is None else meshed["summary"],
                    characterize={k: v["summary"]["characterize"] for k, v in paths.items()},
                    fleet=fleet, wall_s=time.perf_counter() - T_START)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

@@ -13,9 +13,15 @@ nested tree those names spell.  Leaf paths are written in the form of
 ``jax.tree_util.keystr`` (``['params']['unet']['conv_in']['kernel']``), so
 a checkpoint of either package restores into the other's tree.  bf16
 leaves are stored as the reference stores them, two raw bytes an element
-(``<V2``) with ``"bfloat16"`` in the manifest, and read back as bf16.  The
-reference's ``shardings`` becomes a ``device``: re-sharding across devices
-waits for the multi-GPU slice.
+(``<V2``) with ``"bfloat16"`` in the manifest, and read back as bf16.
+
+On a mesh (SPMD ranks, DTensor leaves) every rank snapshots each leaf whole
+(``full_tensor``, a collective), rank 0 alone writes, and ``wait`` ends at
+a barrier, so every rank then sees the published step.  ``restore`` reads
+the host copy on every rank and places each leaf with ``shardings`` (a
+tree of ``parallel.sharding.NamedSharding`` like ``tree_like``'s), or with
+the placements of the DTensor it replaces: the elastic re-shard onto
+another mesh or world size.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import is_dtensor
 
 
 def flatten_with_paths(tree, prefix: str = "") -> list:
@@ -73,6 +81,8 @@ def to_host(leaf) -> np.ndarray:
     with the background writer): bf16 as its raw 2-byte elements
     (``<V2``)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2")
@@ -104,6 +114,8 @@ class Checkpointer:
         self.wait()  # one in-flight save at a time
         leaves = [(path, to_host(leaf), _dtype_name(leaf))
                   for path, leaf in flatten_with_paths(tree)]
+        if _rank() != 0:  # every rank snapshots (a collective); rank 0 writes
+            return
         if self.async_save:
             self._thread = threading.Thread(target=self._write, args=(step, leaves),
                                             daemon=True)
@@ -134,6 +146,10 @@ class Checkpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if _world() > 1:  # every rank sees the published step from here on
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def _gc(self) -> None:
         for s in self.all_steps()[: -self.keep]:
@@ -155,11 +171,14 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like, step: int | None = None, *, device=None):
+    def restore(self, tree_like, step: int | None = None, *, device=None, shardings=None):
         """The leaves of ``tree_like``'s paths from checkpoint ``step``
         (default the newest), as tensors in ``tree_like``'s structure: on
         ``device`` where given, else on the device of the leaf they replace
-        (the host for a non-tensor leaf)."""
+        (the host for a non-tensor leaf); a leaf with a sharding in
+        ``shardings`` (a tree like ``tree_like``'s), or replacing a DTensor,
+        becomes a DTensor placed by it, possibly on another mesh than the
+        checkpoint was written from."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -167,14 +186,40 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {m["path"]: m for m in manifest["leaves"]}
+        placed = (dict(flatten_with_paths(shardings)) if shardings is not None else {})
         out = []
         for path, like in flatten_with_paths(tree_like):
             m = by_path[path]
             t = from_host(np.load(os.path.join(d, m["file"])), m["dtype"])
             dev = device if device is not None else (
                 like.device if isinstance(like, torch.Tensor) else None)
-            out.append(t if dev is None else t.to(dev))
+            t = t if dev is None else t.to(dev)
+            out.append(_placed(t, placed.get(path), like))
         return unflatten_like(tree_like, out)
+
+
+def _placed(t: torch.Tensor, sharding, like):
+    """``t`` as a DTensor placed by ``sharding`` (a ``NamedSharding``), or
+    like the DTensor ``like``; else as it is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if sharding is not None:
+        return distribute_tensor(t, sharding.mesh, sharding.placements, src_data_rank=None)
+    if is_dtensor(like):
+        return distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+    return t
+
+
+def _world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _dtype_name(leaf) -> str:

@@ -24,8 +24,9 @@ policy:
     its state stays parked at its stage boundary (in the cascade's buffers)
     until no interactive work remains.
 
-Sharded serving (``ServeConfig.mesh``) is not ported yet: ``ServeConfig``
-refuses a mesh.
+With ``ServeConfig.mesh`` every pool's params are sharded once for the
+fleet (:func:`normalize_pools`), and each replica's engines serve SPMD over
+the mesh.
 """
 
 from __future__ import annotations
@@ -52,14 +53,17 @@ class RequestMeta:
     arrival: int  # fleet tick of admission
 
 
-def normalize_pools(pools: dict) -> dict:
+def normalize_pools(pools: dict, mesh=None) -> dict:
     """``{name: (workload_or_config, params)}`` -> workload instances: one
     shared instance a pool, which every replica's engine for that pool
-    reuses."""
+    reuses.  With a ``mesh``, params are sharded once here, so the
+    replicas' engines all reuse the same placed copy."""
     out = {}
     for name, (wl, params) in pools.items():
         if not isinstance(wl, GenerativeWorkload):
             wl = workload_for(wl)
+        if mesh is not None:
+            params = wl.shard_params(params, mesh)
         out[name] = (wl, params)
     return out
 
@@ -78,7 +82,7 @@ class FleetReplica:
         self.index = index
         cfg = dataclasses.replace(serve_cfg, route="cascade")
         self.engines = {name: ServeEngine(wl, params, cfg)
-                        for name, (wl, params) in normalize_pools(pools).items()}
+                        for name, (wl, params) in normalize_pools(pools, mesh=cfg.mesh).items()}
         for name, eng in self.engines.items():
             # one Chrome-trace track per (replica, pool) engine timeline
             eng.spans.track = f"replica{index}/{name}"

@@ -76,7 +76,8 @@ class FleetRouter:
                              f"policy {policy!r} never preempts (set policy='slo')")
         if n_replicas < 1 and autoscale is None:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        self.pools = normalize_pools(pools)
+        # params sharded once for the whole fleet when serving on a mesh
+        self.pools = normalize_pools(pools, mesh=serve_cfg.mesh)
         self.policy = policy
         self.preempt = preempt
         self.autoscale = autoscale

@@ -29,12 +29,17 @@ conv runs through ``TemporalConv1dFn`` there, the counterpart of the
 reference's ``_tconv_fused`` / ``_tconv_bwd``: the temporal kernel forward
 on the (B, F, H*W, C) view, and for ``x``, ``w`` and ``bias`` the VJP of
 ``ref.temporal_conv1d_ref`` recomputed from the saved operands.
+
+On a mesh (DTensor operands) both convs run on local shards through the
+boundary of ``kernels.shards``: the batch over the batch axes and, under
+conv-channel TP, C_out over the weight's TP dims with the input gathered.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import shards
 from repro_torch.kernels.conv2d import conv2d as _kernel
 from repro_torch.kernels.conv2d import ref as _ref
 from repro_torch.kernels.tiers import is_fused, resolve_model_impl
@@ -120,11 +125,59 @@ def conv2d(
     gn_a, gn_b = gn_affine if gn_affine is not None else (None, None)
     ops = (x, w, gn_a, gn_b, bias, temb, residual)
     static = (stride, gn_silu, silu, emit_stats)
+    if shards.on_mesh(*ops):
+        return _conv2d_on_mesh(static, ops, impl)
     if resolve_model_impl(impl) != "kernel":
         return _call(_ref.conv2d_ref, static, *ops)
     if needs_grad(*ops):
         return Conv2dFn.apply(static, *ops)
     return _call(_kernel.conv2d, static, *ops)
+
+
+def _channel_layouts(mesh, batch: int, w, c_out_dim: int):
+    """``lay(batch, c_dim)``: placements with the batch (dim 0) on the batch
+    axes where ``batch``, and C_out (tensor dim ``c_dim``) on the mesh dims
+    the weight ``w`` shards its C_out over (conv-channel TP), which the
+    batch then leaves to C_out."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    tp = shards.sharded_dims(w, c_out_dim) if shards.on_mesh(w) else ()
+    on_batch = shards.pinned((batch,), ("batch",), mesh)
+
+    def lay(batched: bool, c_dim: int | None = None) -> tuple:
+        pl = list(on_batch) if batched else [Replicate()] * mesh.ndim
+        for i in tp:
+            pl[i] = Shard(c_dim) if c_dim is not None else Replicate()
+        return tuple(pl)
+
+    return lay
+
+
+def _conv2d_on_mesh(static, ops, impl: str):
+    """``conv2d`` on DTensors.  Channel-parallel (``SERVE_TP_RULES``:
+    ``conv_out`` over ``model``): the input is gathered over C_in, the fused
+    producer's per-(batch, C_in) affine replicated; the weight, bias,
+    ``temb`` and residual, the output and its (B, 2, C_out) statistics
+    sharded on C_out; the batch on the batch axes."""
+    x, w, gn_a, gn_b, bias, temb, residual = ops
+    stride, gn_silu, silu, emit_stats = static
+    mesh = shards.mesh_of(*ops)
+    B, H, W, _ = x.shape
+    C_out = w.shape[3]
+    lay = _channel_layouts(mesh, B, w, 3)
+    out_pl = lay(True, 3)
+    places = (lay(True), lay(False, 3), lay(True), lay(True), lay(False, 0), lay(True, 1), out_pl)
+    x, w, gn_a, gn_b, bias, temb, residual = (
+        shards.local(shards.as_placed(t, mesh, pl), out_pl) for t, pl in zip(ops, places))
+    out = conv2d(x, w, stride=stride, bias=bias,
+                 gn_affine=None if gn_a is None else (gn_a, gn_b), gn_silu=gn_silu,
+                 temb=temb, silu=silu, residual=residual, emit_stats=emit_stats, impl=impl)
+    shape = (B, -(-H // stride), -(-W // stride), C_out)
+    if emit_stats:
+        y, stats = out
+        return (shards.wrap(y, mesh, out_pl, shape),
+                shards.wrap(stats, mesh, lay(True, 2), (B, 2, C_out)))
+    return shards.wrap(out, mesh, out_pl, shape)
 
 
 def _tconv_ref4(x4, w, bias):
@@ -155,6 +208,16 @@ def temporal_conv1d(
     *,
     impl: str = "auto",
 ) -> torch.Tensor:
+    if shards.on_mesh(x, w, bias):
+        # as ``conv2d``'s boundary: the input gathered over C, the weight,
+        # bias and output on C_out's TP dims, the batch on the batch axes
+        mesh = shards.mesh_of(x, w, bias)
+        lay = _channel_layouts(mesh, x.shape[0], w, 2)
+        out_pl = lay(True, 4)
+        xl, wl, bl = (shards.local(shards.as_placed(t, mesh, pl), out_pl)
+                      for t, pl in zip((x, w, bias), (lay(True), lay(False, 2), lay(False, 0))))
+        y = temporal_conv1d(xl, wl, bl, impl=impl)
+        return shards.wrap(y, mesh, out_pl, (*x.shape[:4], w.shape[-1]))
     if resolve_model_impl(impl) != "kernel":
         return _ref.temporal_conv1d_ref(x, w, bias)
     B, F, H, W, C = x.shape

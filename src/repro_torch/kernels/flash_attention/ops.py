@@ -30,12 +30,17 @@ kernel tier runs through ``TemporalAttentionFn`` there: the temporal kernel
 forward, and for q, k and v the VJP of ``ref.temporal_attention_ref``, the
 permute path the reference trains through (its temporal kernel has no VJP
 either).
+
+On a mesh (DTensor operands) both run on local shards through the
+boundary of ``kernels.shards``: ``attention`` head-parallel over the GQA
+group axis, ``temporal_attention`` over the batch and the heads.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import shards
 from repro_torch.kernels.flash_attention import flash_attention as _kernel
 from repro_torch.kernels.flash_attention import ref as _ref
 from repro_torch.kernels.tiers import resolve_model_impl
@@ -94,6 +99,9 @@ def attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if shards.on_mesh(q, k, v):
+        return _attention_on_mesh(q, k, v, causal=causal, window=window, scale=scale,
+                                  kv_offset=kv_offset, impl=impl)
     if resolve_model_impl(impl) != "kernel":
         return _ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale,
                                   kv_offset=kv_offset)
@@ -101,6 +109,38 @@ def attention(
         return FlashAttentionFn.apply((causal, window, scale, kv_offset), q, k, v)
     return _kernel.flash_attention(q, k, v, causal=causal, window=window, scale=scale,
                                    kv_offset=kv_offset)
+
+
+def _attention_on_mesh(q, k, v, *, impl: str, **kw):
+    """``attention`` on DTensors: head-parallel over the GQA **group** axis,
+    as the reference pins it (``src/repro/kernels/flash_attention/ops.py``
+    ``_blocked_attention``): q viewed (B, Sq, KVH, group, D) with its batch on
+    the batch axes and its group axis on ``model``, K/V replicated over
+    ``model``.  Each rank then runs the tier on (B_loc, Sq, KVH * g_loc, D)
+    against its (B_loc, Skv, KVH, D) K/V, where the kernel's ``h // g_loc``
+    maps a local head to its own KV head (a flat head split would not)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = shards.mesh_of(q, k, v)
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    group = H // KVH
+    out_pl = tuple(shards.pinned((B, Sq, KVH, group, D), ("batch", None, None, "model", None),
+                                 mesh))
+    q5 = shards.as_placed(q.reshape(B, Sq, KVH, group, D), mesh, out_pl)
+    kv_pl = tuple(shards.pinned(tuple(k.shape), ("batch", None, None, None), mesh))
+    k, v = (shards.as_placed(t, mesh, kv_pl) for t in (k, v))
+    ql, kl, vl = (shards.local(t, out_pl) for t in (q5, k, v))
+    b, _, _, g, _ = ql.shape
+    out = attention(ql.reshape(b, Sq, KVH * g, D), kl, vl, impl=impl, **kw)
+    if KVH == 1:  # the group axis is the head axis
+        return shards.wrap(out, mesh, tuple(
+            Shard(2) if p.is_shard(3) else p for p in out_pl), (B, Sq, H, D))
+    out5 = shards.wrap(out.reshape(b, Sq, KVH, g, D), mesh, out_pl, (B, Sq, KVH, group, D))
+    # DTensor has no rule to fold a sharded group axis into the heads: the
+    # output is gathered over it first (a named redistribution site)
+    return shards.as_placed(out5, mesh, tuple(
+        Replicate() if p.is_shard(3) else p for p in out_pl)).reshape(B, Sq, H, D)
 
 
 def decode_attention(
@@ -156,6 +196,14 @@ def temporal_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     scale = scale if scale is not None else x_q.shape[-1] ** -0.5
+    if shards.on_mesh(x_q, x_k, x_v):
+        # per (batch, position, head) independent: the batch on the batch
+        # axes and the heads on ``model``, the frames whole on every rank
+        mesh = shards.mesh_of(x_q, x_k, x_v)
+        pl = tuple(shards.pinned(tuple(x_q.shape), ("batch", None, None, "model", None), mesh))
+        ql, kl, vl = (shards.local(shards.as_placed(t, mesh, pl), pl) for t in (x_q, x_k, x_v))
+        out = temporal_attention(ql, kl, vl, scale=scale, impl=impl)
+        return shards.wrap(out, mesh, pl, tuple(x_q.shape))
     if resolve_model_impl(impl) != "kernel":
         return _ref.temporal_attention_ref(x_q, x_k, x_v, scale=scale)
     if needs_grad(x_q, x_k, x_v):

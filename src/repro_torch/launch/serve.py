@@ -23,13 +23,22 @@ requests and the fleet summary (``stats["fleet"]``) reported:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stable-diffusion --reduced \
         --device cpu --replicas 2 --router slo --preempt --requests 4
 
-Sharded serving (``--mesh``) is not ported yet; that flag exits with a
-message.
+``--mesh DxM`` serves SPMD over a (data, model) mesh of ``D * M`` ranks:
+under ``torchrun --nproc_per_node D*M`` (one process a card), or a world of
+one in-process for ``1x1``.  Params shard once at startup under the
+serving TP rules, batches shard over ``data``, and the cascade route gives
+each stage a slice of the ranks; rank 0 prints the report and writes the
+files:
+
+    torchrun --nproc_per_node 4 -m repro_torch.launch.serve --arch stable-diffusion \
+        --reduced --device cpu --mesh 2x2 --requests 4
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import time
 
@@ -157,7 +166,8 @@ def parse_args(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="LM sampling temperature (0 = greedy)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="sharded serving over a device mesh: not ported yet")
+                    help="serve over a (data, model) mesh of D*M ranks, e.g. 2x2: params "
+                         "TP-sharded on model, batches sharded on data")
     ap.add_argument("--seed", type=int, default=0)
     # -- fleet serving ---------------------------------------------------------
     ap.add_argument("--replicas", type=int, default=1,
@@ -221,10 +231,24 @@ def main(argv=None) -> dict:
     """Serve ``--requests`` seeded prompts and print the report; returns
     ``{rid: output}``."""
     args = parse_args(argv)
+    mesh = None
     if args.mesh:
-        raise SystemExit("--mesh: sharded serving is not ported yet "
-                         "(ROADMAP.md, open items 1.3: multi-GPU)")
+        from repro_torch.launch.mesh import make_debug_mesh, parse_mesh
 
+        try:
+            mesh = make_debug_mesh(*parse_mesh(args.mesh), device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        import torch.distributed as dist
+
+        if dist.get_rank() != 0:  # rank 0 reports and writes the files
+            args.trace_out = args.stats_json = None
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _serve(args, mesh)
+    return _serve(args, mesh)
+
+
+def _serve(args, mesh) -> dict:
     cfg = get_config(args.arch)
     workload = reduced_workload(cfg) if args.reduced else workload_for(cfg)
     cfg = workload.cfg
@@ -234,12 +258,18 @@ def main(argv=None) -> dict:
     serve_cfg = ServeConfig(pod_size=args.pod_size, route=args.route, impl=args.impl,
                             stage_impl=parse_stage_impl(args.stage_impl),
                             admission=args.admission, temperature=args.temperature,
-                            tick_seconds=args.tick_seconds, seed=args.seed)
+                            tick_seconds=args.tick_seconds, seed=args.seed, mesh=mesh)
     engine = None if fleet_mode else ServeEngine(workload, params, serve_cfg)
     cd = workload.cost_descriptor()
     print(f"arch {cfg.name} | route {'cascade' if fleet_mode else engine.route} | stages "
           + " -> ".join(f"{s.name}x{s.steps}" for s in cd.stages))
     print(f"device {params_device(params)}")
+    if engine is not None and mesh is not None:
+        ms = engine.stats["mesh"]
+        print(f"mesh {ms['axes']} ({ms['devices']} devices) | TP coverage "
+              f"{ms['params']['tp_coverage']:.1%} ({ms['params']['sharded_bytes']}/"
+              f"{ms['params']['total_bytes']} bytes sharded, "
+              f"{ms['params']['replication_fallbacks']:.0f} replication fallbacks)")
 
     arrivals = arrival_ticks(args)
     if args.arrivals != "none":
@@ -273,6 +303,11 @@ def main(argv=None) -> dict:
         c = s["cascade"]
         print(f"  pipeline: {c['ticks']} ticks, stage concurrency max "
               f"{c['concurrency']['max']} mean {c['concurrency']['mean']:.2f}")
+        if "mesh" in c:
+            cm = c["mesh"]
+            sd = ", ".join(f"{n}={k}" for n, k in cm["stage_devices"].items())
+            print(f"  stage meshes: {sd} | {cm['reshard_events']} reshards, "
+                  f"{cm['reshard_bytes']} bytes moved")
         adm = c["admission"]
         print(f"  admission [{adm['policy']}]: wait ticks p50 {adm['wait_ticks']['p50']:.0f} "
               f"p95 {adm['wait_ticks']['p95']:.0f} | request e2e ticks p50 "

@@ -18,11 +18,20 @@ an enc-dec step attends to.
     step = make_train_step(model, cfg, microbatches=2)
     params, opt_state, metrics = step(params, opt_state, batch)
 
-``make_train_step`` is the reference's without a mesh: the model's loss on
-its default ``impl="blocked_jax"`` (the port's ``torch`` tier) and
-``remat="dots"``, gradients accumulated in fp32 over ``microbatches``,
-then AdamW.  ``params`` are the model's own leaves (``nn.trainable``),
-updated in place.  The shardings come with the multi-GPU slice.
+``make_train_step`` is the reference's: the model's loss on its default
+``impl="blocked_jax"`` (the port's ``torch`` tier) and ``remat="dots"``,
+gradients accumulated in fp32 over ``microbatches``, then AdamW.  ``params``
+are the model's own leaves (``nn.trainable``), updated in place.  With a
+``mesh`` the leaves are DTensors placed by :func:`param_shardings` (the
+active profile's rules: FSDP + TP under ``2d``, ZeRO-3 over the grid under
+``fsdp``), each microbatch is sharded over the profile's batch axes, and
+the step runs inside ``mesh_scope``.
+
+The mesh layouts, as the reference's: :func:`param_shardings` of a model,
+:func:`cache_shardings` of its decode state in the ``decode`` (sequence over
+``model``) or ``prefill`` (head dim over ``model``) layout, over the
+``meta`` state :func:`abstract_cache` gives.  They take a torch
+``DeviceMesh`` or a shape-only ``parallel.sharding.AbstractMesh``.
 """
 
 from __future__ import annotations
@@ -31,6 +40,9 @@ import torch
 
 from repro_torch.configs.base import LMConfig, ShapeSpec
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.nn import specs_of
+from repro_torch.parallel import sharding as shlib
+from repro_torch.parallel.mesh_exec import mesh_scope, shard_batch
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
 from repro_torch.training.trainer import accumulate_grads, split_microbatches
 
@@ -101,20 +113,88 @@ def make_serve_step(model: TransformerLM, cfg: LMConfig, *, impl: str = "auto"):
     return serve_step
 
 
-def make_train_step(model: TransformerLM, cfg: LMConfig, *, remat: str = "dots",
+def abstract_cache(model: TransformerLM, batch: int, max_len: int) -> list:
+    """The model's zero decode state for ``batch`` x ``max_len`` on ``meta``
+    (the reference's ``eval_shape`` of ``init_cache``)."""
+    bad = [k for k, p in model.named_parameters() if p.device.type != "meta"]
+    if bad:
+        raise ValueError(f"abstract_cache takes a model built on meta; {bad[0]} is not")
+    return model.init_cache(batch, max_len)
+
+
+def cache_shardings(caches_abs: list, mesh, global_batch: int, layout: str = "decode") -> list:
+    """Path-aware shardings of a decode state (a tree like ``caches_abs``):
+
+    ``decode`` layout: KV caches (L, B, S, KVH, D) shard (batch -> data,
+    seq -> model), the flash-decoding layout; ``prefill`` layout: (batch ->
+    data, head_dim -> model), the layout the TP projection produces.
+    SSM / RNN states shard (batch -> data, width -> model) in both.  Dim 1
+    shards over the batch axes only where ``global_batch`` divides them,
+    as the reference's (which reads the leaf's own batch dim)."""
+    ba = shlib.batch_axes(mesh)
+    bax = ba if len(ba) > 1 else (ba[0] if ba else None)
+    sizes = shlib.mesh_shape(mesh)
+    del global_batch  # the reference reads each leaf's own dim 1
+
+    def batch_ok(dim):
+        n = 1
+        for a in ba:
+            n *= sizes[a]
+        return dim % n == 0
+
+    def model_ok(dim):
+        return "model" in sizes and dim % sizes["model"] == 0
+
+    def spec(kind, shape):
+        b = bax if (len(shape) > 1 and batch_ok(shape[1])) else None
+        if kind == "attn":  # (L, B, S, KVH, D)
+            if layout == "prefill":
+                return (None, b, None, None, "model" if model_ok(shape[4]) else None)
+            return (None, b, "model" if model_ok(shape[2]) else None, None, None)
+        if kind == "ssm":
+            if len(shape) == 5:  # (L, B, H, P, N)
+                return (None, b, "model" if model_ok(shape[2]) else None, None, None)
+            return (None, b, None, "model" if model_ok(shape[-1]) else None)
+        if kind == "rnn":
+            if len(shape) == 3:  # (L, B, D)
+                return (None, b, "model" if model_ok(shape[-1]) else None)
+            return (None, b, None, "model" if model_ok(shape[-1]) else None)
+        return (None,) * len(shape)
+
+    def group(g):
+        (kind, st), = g.items()
+        return {kind: type(st)(*(shlib.NamedSharding(mesh, spec(kind, tuple(a.shape)))
+                                 for a in st))}
+
+    return [group(g) for g in caches_abs]
+
+
+def param_shardings(model, mesh) -> dict:
+    """``{key: NamedSharding}`` of every leaf under the active profile's
+    rules (``parallel.sharding.set_profile``)."""
+    return shlib.logical_to_sharding(specs_of(model), model, mesh)
+
+
+def make_train_step(model: TransformerLM, cfg: LMConfig, mesh=None, *, remat: str = "dots",
                     impl: str = "blocked_jax", opt_cfg: AdamWConfig = AdamWConfig(),
                     microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients over ``microbatches`` slices of
     the batch (axis 0, axis 1 of ``mrope_positions``), averaged in fp32,
-    then ``adamw_update``."""
+    then ``adamw_update``.  With a ``mesh``, ``params`` are the model's
+    DTensor leaves (``param_shardings``), each slice is sharded over the
+    batch axes, and the step runs in ``mesh_scope``."""
     del cfg  # the model holds its config
+    axes = {"mrope_positions": 1}
 
     def train_step(params: dict, opt_state: dict, batch: dict):
-        loss, grads = accumulate_grads(
-            lambda i, mb: model.loss(mb, impl=impl, remat=remat), params,
-            split_microbatches(batch, microbatches, {"mrope_positions": 1}))
-        params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        mbs = split_microbatches(batch, microbatches, axes)
+        if mesh is not None:
+            mbs = [shard_batch(mb, mesh, axes) for mb in mbs]
+        with mesh_scope(mesh):
+            loss, grads = accumulate_grads(
+                lambda i, mb: model.loss(mb, impl=impl, remat=remat), params, mbs)
+            params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

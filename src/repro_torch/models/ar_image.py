@@ -40,6 +40,7 @@ from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from repro_torch.models.transformer import Block, masked_nll
 from repro_torch.models.vae import VQDecoderConfig, VQGANDecoder
 from repro_torch.nn import Module, normal_init
+from repro_torch.parallel.sharding import place
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,12 +166,15 @@ class ARImageModel(Module):
         self.cfg = cfg
         c = cfg
         self.text = TextEncoder(c.text)
-        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype, name="ctx_proj")
+        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype, name="ctx_proj",
+                              axes=(None, "embed"))
         # +1: the mask token
         self.embed = Embedding(c.image_vocab + 1, c.d_model, c.dtype, name="img_embed")
-        self.param("pos", (c.image_tokens, c.d_model), normal_init(0.01), c.dtype)
+        self.param("pos", (c.image_tokens, c.d_model), normal_init(0.01), c.dtype,
+                   axes=(None, "embed"))
         self.final_ln = LayerNorm(c.d_model, dtype=c.dtype, name="final_ln")
-        self.head = Dense(c.d_model, c.image_vocab, False, c.dtype, name="head")
+        self.head = Dense(c.d_model, c.image_vocab, False, c.dtype, name="head",
+                          axes=("embed", "vocab"))
         self.vq = VQGANDecoder(c.vq)
         lm = c.lm_config()
         for i in range(c.n_layers):
@@ -265,7 +269,7 @@ class ARImageModel(Module):
         first step runs, as the reference's (the workload's ``trace_events``
         samples the steps)."""
         B, S = ctx.shape[0], self.cfg.image_tokens
-        tokens = torch.zeros((B, S), dtype=torch.int64, device=ctx.device)
+        tokens = place(torch.zeros((B, S), dtype=torch.int64, device=ctx.device), ("batch", None))
         caches, cross = self.ar_init(ctx)
         if tracer.active():
             steps = 1

@@ -29,6 +29,7 @@ from repro_torch.models.text_encoder import TextEncoder, TextEncoderConfig
 from repro_torch.models.unet import UNet2D, UNetConfig
 from repro_torch.models.vae import ConvDecoder, DecoderConfig
 from repro_torch.nn import Module
+from repro_torch.parallel.sharding import concat_unsharded
 
 
 def ddpm_alphas(n_train_steps: int = 1000, device="cpu") -> torch.Tensor:
@@ -173,7 +174,7 @@ class DiffusionPipeline(Module):
         which resumes at any step index."""
 
         def unet_eps(z, t):
-            inp = z if cond is None else torch.cat([z, cond], dim=-1)
+            inp = z if cond is None else concat_unsharded([z, cond], axis=-1)
             tb = torch.full((z.shape[0],), float(t), dtype=torch.float32, device=z.device)
             return unet(inp, tb, ctx, impl=impl)
 

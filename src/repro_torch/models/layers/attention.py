@@ -46,6 +46,11 @@ from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.basic import Dense
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.nn import Module
+from repro_torch.parallel.sharding import constrain, place
+
+# The TP width the K/V projections' logical axis is chosen for (the
+# reference's ``Attention.TP_WIDTH_HINT``).
+TP_WIDTH_HINT = 16
 
 
 class AttentionCache(NamedTuple):
@@ -93,10 +98,17 @@ class Attention(Module):
         self.rope, self.rope_base, self.rope_pct = rope, rope_base, rope_pct
         self.mrope_sections = mrope_sections
         self.causal, self.dtype = causal, dtype
-        self.wq = Dense(d_model, n_heads * head_dim, qkv_bias, dtype, name="wq")
-        self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wk")
-        self.wv = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wv")
-        self.wo = Dense(n_heads * head_dim, d_model, out_bias, dtype, name="wo")
+        # GQA-TP (the reference's ``TP_WIDTH_HINT``): K/V projections with
+        # fewer KV heads than the TP width stay replicated over ``model``.
+        kv_axis = "kv_heads" if self.n_kv_heads >= TP_WIDTH_HINT else "kv_heads_small"
+        self.wq = Dense(d_model, n_heads * head_dim, qkv_bias, dtype, name="wq",
+                        axes=("embed", "heads"))
+        self.wk = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wk",
+                        axes=("embed", kv_axis))
+        self.wv = Dense(d_model, self.n_kv_heads * head_dim, qkv_bias, dtype, name="wv",
+                        axes=("embed", kv_axis))
+        self.wo = Dense(n_heads * head_dim, d_model, out_bias, dtype, name="wo",
+                        axes=("heads", "embed"))
         self.qk_norm = qk_norm
         if qk_norm:
             self.q_norm = RMSNorm(head_dim, dtype=dtype)
@@ -128,6 +140,10 @@ class Attention(Module):
         B, S, _ = x.shape
         q = self._heads(self.wq(x), self.n_heads)
         k, v = self.project_kv(context if self.cross else x)
+        # pin batch x head sharding on the projections, as the reference
+        q = constrain(q, ("batch", None, "model", None))
+        kv_spec = ("batch", None, "model" if self.n_kv_heads >= TP_WIDTH_HINT else None, None)
+        k, v = constrain(k, kv_spec), constrain(v, kv_spec)
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         if not self.cross:
@@ -145,7 +161,9 @@ class Attention(Module):
         """Zeros (batch, max_len, KVH, D) beside the weights."""
         shape = (batch, max_len, self.n_kv_heads, self.head_dim)
         kw = dict(dtype=dtype or self.dtype, device=self.wq.kernel.device)
-        return AttentionCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+        spec = ("batch", None, None, None)
+        return AttentionCache(place(torch.zeros(shape, **kw), spec),
+                              place(torch.zeros(shape, **kw), spec))
 
     def decode(self, x: torch.Tensor, cache: AttentionCache | None, cur_len: int, *,
                cross_cache: AttentionCache | None = None, cross_len=None):

@@ -9,21 +9,33 @@ import torch
 
 from repro_torch.core import tracer
 from repro_torch.nn import Module, normal_init, scaled_init, zeros_init
+from repro_torch.parallel.sharding import constrain, current_mesh, current_rules
 
 
 class Dense(Module):
     """y = x @ W (+ b), W stored ``(in, out)`` as in the reference."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = False,
-                 dtype=torch.float32, name: str = "dense"):
+                 dtype=torch.float32, name: str = "dense", *, axes: tuple = ("embed", "mlp")):
         super().__init__()
         self.in_dim, self.out_dim, self.use_bias, self.name = in_dim, out_dim, use_bias, name
-        self.param("kernel", (in_dim, out_dim), scaled_init((0,)), dtype)
+        self.axes = tuple(axes)
+        self.param("kernel", (in_dim, out_dim), scaled_init((0,)), dtype, axes=self.axes)
         if use_bias:
-            self.param("bias", (out_dim,), zeros_init, dtype)
+            self.param("bias", (out_dim,), zeros_init, dtype, axes=(self.axes[1],))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel.to(x.dtype))
+        w = self.kernel.to(x.dtype)
+        if current_mesh() is not None:
+            # ZeRO-3 at use, as the reference: the weight's FSDP axes (data,
+            # pod) gathered, its TP axes (model) kept sharded
+            use_spec = []
+            for ax in self.axes:
+                r = current_rules().get(ax)
+                rt = r if isinstance(r, tuple) else (r,)
+                use_spec.append(None if any(a in ("data", "pod") for a in rt) else r)
+            w = constrain(w, tuple(use_spec))
+        y = torch.matmul(x, w)
         if self.use_bias:
             y = y + self.bias.to(x.dtype)
         if tracer.active():
@@ -41,7 +53,7 @@ class Embedding(Module):
     def __init__(self, vocab: int, dim: int, dtype=torch.float32, name: str = "embed"):
         super().__init__()
         self.name = name
-        self.param("table", (vocab, dim), normal_init(0.02), dtype)
+        self.param("table", (vocab, dim), normal_init(0.02), dtype, axes=("vocab", "embed"))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         out = self.table[ids]

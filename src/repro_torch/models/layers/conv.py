@@ -82,8 +82,9 @@ class Conv2D(Module):
                  dtype=torch.float32, name: str = "conv"):
         super().__init__()
         self.stride, self.name = stride, name
-        self.param("kernel", (kernel, kernel, in_ch, out_ch), scaled_init((0, 1, 2)), dtype)
-        self.param("bias", (out_ch,), zeros_init, dtype)
+        self.param("kernel", (kernel, kernel, in_ch, out_ch), scaled_init((0, 1, 2)), dtype,
+                   axes=(None, None, "conv_in", "conv_out"))
+        self.param("bias", (out_ch,), zeros_init, dtype, axes=("conv_out",))
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto", gn_affine: tuple | None = None,
                 gn_silu: bool = True, temb: torch.Tensor | None = None, silu: bool = False,
@@ -111,8 +112,9 @@ class TemporalConv1D(Module):
     def __init__(self, channels: int, kernel: int = 3, dtype=torch.float32, name: str = "tconv"):
         super().__init__()
         self.taps, self.name = kernel, name
-        self.param("kernel", (kernel, channels, channels), scaled_init((0, 1)), dtype)
-        self.param("bias", (channels,), zeros_init, dtype)
+        self.param("kernel", (kernel, channels, channels), scaled_init((0, 1)), dtype,
+                   axes=(None, "conv_in", "conv_out"))
+        self.param("bias", (channels,), zeros_init, dtype, axes=("conv_out",))
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         y = conv_ops.temporal_conv1d(x, self.kernel.to(x.dtype), self.bias, impl=impl)
@@ -136,8 +138,8 @@ class CausalDepthwiseConv1D(Module):
                  name: str = "conv1d"):
         super().__init__()
         self.channels, self.width, self.name = channels, width, name
-        self.param("kernel", (width, channels), scaled_init((0,)), dtype)
-        self.param("bias", (channels,), zeros_init, dtype)
+        self.param("kernel", (width, channels), scaled_init((0,)), dtype, axes=(None, "mlp"))
+        self.param("bias", (channels,), zeros_init, dtype, axes=("mlp",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, S, C) -> (B, S, C)."""

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from repro_torch.core import tracer
 from repro_torch.models.layers.basic import Dense
 from repro_torch.nn import Module
+from repro_torch.parallel.sharding import constrain
 
 _ACTS = {
     "silu": F.silu,
@@ -24,14 +25,16 @@ class MLP(Module):
                  activation: str = "gelu", gated: bool = False, name: str = "mlp"):
         super().__init__()
         self.act, self.gated, self.name = _ACTS[activation], gated, name
-        self.wi = Dense(d_model, d_ff, use_bias, dtype, name="wi")
-        self.wo = Dense(d_ff, d_model, use_bias, dtype, name="wo")
+        self.wi = Dense(d_model, d_ff, use_bias, dtype, name="wi", axes=("embed", "mlp"))
+        self.wo = Dense(d_ff, d_model, use_bias, dtype, name="wo", axes=("mlp", "embed"))
         if gated:
-            self.wg = Dense(d_model, d_ff, use_bias, dtype, name="wg")
+            self.wg = Dense(d_model, d_ff, use_bias, dtype, name="wg", axes=("embed", "mlp"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.wi(x)
-        h = self.act(self.wg(x)) * h if self.gated else self.act(h)
+        # the hidden activation pinned batch-sharded x TP-sharded, as the reference
+        spec = ("batch", None, "model") if x.ndim == 3 else (None,) * x.ndim
+        h = constrain(self.wi(x), spec)
+        h = self.act(constrain(self.wg(x), spec)) * h if self.gated else self.act(h)
         if tracer.active():
             tracer.record("pointwise", f"{self.name}_act", flops=4.0 * h.numel(),
                           bytes_hbm=tracer.nbytes((h.shape, h.dtype)) * 2)

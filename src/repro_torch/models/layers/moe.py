@@ -20,8 +20,10 @@ reference's, step for step:
     ``top_p * keep`` (a dropped assignment gives 0, and the rest are not
     renormalized), plus the shared experts' dense path.
 
-The reference's sharding calls (``constrain``, ``concat_unsharded``) pin
-expert parallelism on a mesh; on one card they are no-ops and are left out.
+On a mesh the reference's sharding calls pin expert parallelism: the
+(E, C, d) dispatch buffers over ``model``, the combine's concat unsharded
+(``concat_unsharded``) and the gathered rows batch-sharded.  The dispatch
+itself runs on the tokens gathered whole.
 
 Routing, scatter and gather run under the tracer scope ``{name}_dispatch``,
 which opens a ``record_function`` range only while a profile runs: the
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.core import tracer
 from repro_torch.models.layers.mlp import _ACTS
 from repro_torch.nn import Module, scaled_init
+from repro_torch.parallel.sharding import concat_unsharded, constrain
 
 
 def top_k_lower_index_first(probs: torch.Tensor, k: int):
@@ -80,15 +83,15 @@ class MoE(Module):
         # d_ff_shared defaults to n_shared * d_ff_expert, as the reference's
         self.shared_ff = d_ff_shared or n_shared * d_ff_expert
         E, d, f = n_experts, d_model, d_ff_expert
-        self.param("router", (d, E), scaled_init((0,)), torch.float32)
-        self.param("wi", (E, d, f), scaled_init((1,)), dtype)
-        self.param("wg", (E, d, f), scaled_init((1,)), dtype)
-        self.param("wo", (E, f, d), scaled_init((1,)), dtype)
+        self.param("router", (d, E), scaled_init((0,)), torch.float32, axes=("embed", None))
+        self.param("wi", (E, d, f), scaled_init((1,)), dtype, axes=("experts", "embed", "mlp"))
+        self.param("wg", (E, d, f), scaled_init((1,)), dtype, axes=("experts", "embed", "mlp"))
+        self.param("wo", (E, f, d), scaled_init((1,)), dtype, axes=("experts", "mlp", "embed"))
         if n_shared > 0:
             sf = self.shared_ff
-            self.param("shared_wi", (d, sf), scaled_init((0,)), dtype)
-            self.param("shared_wg", (d, sf), scaled_init((0,)), dtype)
-            self.param("shared_wo", (sf, d), scaled_init((0,)), dtype)
+            self.param("shared_wi", (d, sf), scaled_init((0,)), dtype, axes=("embed", "mlp"))
+            self.param("shared_wg", (d, sf), scaled_init((0,)), dtype, axes=("embed", "mlp"))
+            self.param("shared_wo", (sf, d), scaled_init((0,)), dtype, axes=("mlp", "embed"))
 
     def capacity(self, tokens: int, no_drop: bool = False) -> int:
         """Rows per expert for ``tokens`` tokens: every assignment fits with
@@ -110,7 +113,10 @@ class MoE(Module):
         """x (B, S, d) -> (y (B, S, d), the auxiliary loss)."""
         B, S, d = x.shape
         T, E, k = B * S, self.n_experts, self.top_k
-        xt = x.reshape(T, d)
+        # the dispatch (routing, each assignment's position in its expert,
+        # the scatter) orders every token of the batch: on a mesh it runs on
+        # the tokens gathered whole (a named redistribution site)
+        xt = constrain(x.reshape(T, d), (None, None))
         C = self.capacity(T, no_drop)
         with tracer.scope(f"{self.name}_dispatch"):
             probs, top_p, top_i = self.route(xt)
@@ -123,14 +129,17 @@ class MoE(Module):
             dest = torch.where(keep, eid * C + pos, E * C)
             buf = x.new_zeros((E * C + 1, d))
             buf[dest] = xt.repeat_interleave(k, dim=0)
-            expert_in = buf[:-1].view(E, C, d)
+            expert_in = constrain(buf[:-1].view(E, C, d), ("model", None, None))
         h = torch.bmm(expert_in, self.wi.to(x.dtype))
         g = torch.bmm(expert_in, self.wg.to(x.dtype))
-        expert_out = torch.bmm(self.act(g) * h, self.wo.to(x.dtype))  # (E, C, d)
+        expert_out = constrain(torch.bmm(self.act(g) * h, self.wo.to(x.dtype)),
+                               ("model", None, None))  # (E, C, d)
         with tracer.scope(f"{self.name}_dispatch"):
-            out_flat = torch.cat([expert_out.reshape(E * C, d), x.new_zeros((1, d))])
+            out_flat = concat_unsharded([expert_out.reshape(E * C, d), x.new_zeros((1, d))],
+                                        axis=0)
             weights = (top_p.reshape(T * k) * keep).to(x.dtype)
-            y = (out_flat[dest] * weights[:, None]).reshape(T, k, d).sum(dim=1)
+            gathered = constrain(out_flat[dest], ("batch", None))
+            y = (gathered * weights[:, None]).reshape(T, k, d).sum(dim=1)
         if self.n_shared > 0:  # the shared experts' always-on dense path (DeepSeekMoE)
             sh = self.act(xt @ self.shared_wg.to(x.dtype)) * (xt @ self.shared_wi.to(x.dtype))
             y = y + sh @ self.shared_wo.to(x.dtype)

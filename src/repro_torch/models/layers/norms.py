@@ -42,9 +42,9 @@ class LayerNorm(Module):
         self.dim, self.name = dim, name
         self.with_scale, self.with_bias = with_scale, with_bias
         if with_scale:
-            self.param("scale", (dim,), ones_init, dtype)
+            self.param("scale", (dim,), ones_init, dtype, axes=("embed",))
         if with_bias:
-            self.param("bias", (dim,), zeros_init, dtype)
+            self.param("bias", (dim,), zeros_init, dtype, axes=("embed",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -67,7 +67,7 @@ class RMSNorm(Module):
     def __init__(self, dim: int, dtype=torch.float32, name: str = "rmsnorm"):
         super().__init__()
         self.dim, self.name = dim, name
-        self.param("scale", (dim,), ones_init, dtype)
+        self.param("scale", (dim,), ones_init, dtype, axes=("embed",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()

@@ -72,13 +72,13 @@ class RGLRUBlock(Module):
         super().__init__()
         self.d_model, self.d_rnn, self.conv_width, self.name = d_model, d_rnn, conv_width, name
         D = d_rnn
-        self.proj_x = Dense(d_model, D, True, dtype, name="proj_x")
-        self.proj_gate = Dense(d_model, D, True, dtype, name="proj_gate")
-        self.proj_out = Dense(D, d_model, True, dtype, name="proj_out")
+        self.proj_x = Dense(d_model, D, True, dtype, name="proj_x", axes=("embed", "mlp"))
+        self.proj_gate = Dense(d_model, D, True, dtype, name="proj_gate", axes=("embed", "mlp"))
+        self.proj_out = Dense(D, d_model, True, dtype, name="proj_out", axes=("mlp", "embed"))
         self.conv = CausalDepthwiseConv1D(D, conv_width, dtype=dtype)
-        self.param("w_a", (D, D), scaled_init((0,)), dtype)
+        self.param("w_a", (D, D), scaled_init((0,)), dtype, axes=("mlp", None))
         self.param("b_a", (D,), zeros_init, torch.float32)
-        self.param("w_x", (D, D), scaled_init((0,)), dtype)
+        self.param("w_x", (D, D), scaled_init((0,)), dtype, axes=("mlp", None))
         self.param("b_x", (D,), zeros_init, torch.float32)
         self.param("lam", (D,), _lam_init, torch.float32)
 

@@ -13,9 +13,9 @@ in the (batch, chunk, head, row, column) layout, and the three-operand
 token.
 
 The inits are the reference's deterministic ones: ``A_log = log(linspace(1,
-16, H))``, ``dt_bias`` zeros and ``D`` ones.  The reference's ``constrain``
-calls pin head-parallel sharding on a mesh; on one card they are no-ops and
-are left out.
+16, H))``, ``dt_bias`` zeros and ``D`` ones.  On a mesh the chunked
+operands are pinned head-parallel (heads over ``model``), as the
+reference's ``constrain`` calls pin them.
 
 From the softplus of ``dt`` through the ``D`` skip, the work runs under the
 tracer scope ``{name}_scan`` (a ``record_function`` range only while a
@@ -37,6 +37,7 @@ from repro_torch.models.layers.basic import Dense
 from repro_torch.models.layers.conv import CausalDepthwiseConv1D
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.nn import Module, ones_init, zeros_init
+from repro_torch.parallel.sharding import constrain
 
 
 class Mamba2State(NamedTuple):
@@ -61,13 +62,15 @@ class Mamba2Mixer(Module):
         self.conv_dim = self.d_inner + 2 * n_groups * d_state
         d_in_proj = 2 * self.d_inner + 2 * n_groups * d_state + self.n_heads
         H = self.n_heads
-        self.in_proj = Dense(d_model, d_in_proj, False, dtype, name="in_proj")
+        self.in_proj = Dense(d_model, d_in_proj, False, dtype, name="in_proj",
+                             axes=("embed", "mlp"))
         self.conv = CausalDepthwiseConv1D(self.conv_dim, d_conv, dtype=dtype)
         self.param("dt_bias", (H,), zeros_init, torch.float32)
         self.param("A_log", (H,), _a_log_init, torch.float32)
         self.param("D", (H,), ones_init, torch.float32)
         self.norm = RMSNorm(self.d_inner, dtype=dtype, name="ssm_norm")
-        self.out_proj = Dense(self.d_inner, d_model, False, dtype, name="out_proj")
+        self.out_proj = Dense(self.d_inner, d_model, False, dtype, name="out_proj",
+                              axes=("mlp", "embed"))
 
     def _split(self, zxbcdt: torch.Tensor):
         di = self.d_inner
@@ -103,8 +106,12 @@ class Mamba2Mixer(Module):
             def chunks(t):  # (B, nc*L, H, K) -> (B, nc, H, L, K), fp32
                 return t.reshape(B, nc, L, H, t.shape[-1]).permute(0, 1, 3, 2, 4).float()
 
-            xc, Bc, Cc = chunks(x), chunks(Bm), chunks(Cm)
-            cs = torch.cumsum(dA.reshape(B, nc, L, H).permute(0, 1, 3, 2), dim=-1)  # (B,nc,H,L)
+            # head-parallel SSD: the (L, L) decay/score tensors, the memory
+            # hot-spot, stay O(H / tp) a rank
+            xc, Bc, Cc = (constrain(chunks(t), ("batch", None, "model", None, None))
+                          for t in (x, Bm, Cm))
+            cs = torch.cumsum(constrain(dA.reshape(B, nc, L, H).permute(0, 1, 3, 2),
+                                        ("batch", None, "model", None)), dim=-1)  # (B,nc,H,L)
             # the decay matrix L[i, j] = exp(cs_i - cs_j) for j <= i, masked
             # before the exp: the upper triangle's exponents are positive
             causal = torch.ones((L, L), dtype=torch.bool, device=u.device).tril()

@@ -47,7 +47,8 @@ class TextEncoder(Module):
         super().__init__()
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype)
-        self.param("pos", (cfg.max_len, cfg.d_model), normal_init(0.01), cfg.dtype)
+        self.param("pos", (cfg.max_len, cfg.d_model), normal_init(0.01), cfg.dtype,
+                   axes=(None, "embed"))
         self.final_ln = LayerNorm(cfg.d_model, dtype=cfg.dtype, name="final_ln")
         for i in range(cfg.n_layers):
             self.add_module(f"layer{i}", _EncoderLayer(cfg))

@@ -82,6 +82,7 @@ from repro_torch.models.layers.norms import LayerNorm, RMSNorm
 from repro_torch.models.layers.rglru import RGLRUBlock, RGLRUState
 from repro_torch.models.layers.ssm import Mamba2Mixer, Mamba2State
 from repro_torch.nn import Module, layer_views, stack_params
+from repro_torch.parallel.sharding import constrain, place
 
 # each recurrent block type: its state's key and type
 RECURRENT = {"mamba2": ("ssm", Mamba2State), "rglru": ("rnn", RGLRUState)}
@@ -91,8 +92,10 @@ BLOCK_TYPES = ("dense", "moe", "local_attn", *RECURRENT)
 def masked_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The mean negative log-likelihood of ``labels`` under ``logits`` (B,
     S, V), in fp32, over the positions whose label is >= 0: the sum over
-    ``max(count, 1)``, so a batch with no such position gives 0."""
-    logits = logits.float()
+    ``max(count, 1)``, so a batch with no such position gives 0.  On a
+    mesh the logits are gathered over the vocab first (DTensor has no rule
+    for a gather over a sharded vocab: a named redistribution site)."""
+    logits = constrain(logits, ("batch", None, None)).float()
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
@@ -259,8 +262,8 @@ def _zero_cache(group: list, batch: int, cap: int) -> AttentionCache:
     """Zeros (n, batch, cap, KVH, D) for the n layers of a group."""
     a = group[0].attn
     shape = (len(group), batch, cap, a.n_kv_heads, a.head_dim)
-    return AttentionCache(*(torch.zeros(shape, dtype=a.dtype, device=a.wq.kernel.device)
-                            for _ in range(2)))
+    return AttentionCache(*(place(torch.zeros(shape, dtype=a.dtype, device=a.wq.kernel.device),
+                                  (None, "batch", None, None, None)) for _ in range(2)))
 
 
 def _zero_state(group: list, batch: int, max_len: int) -> dict:
@@ -271,7 +274,8 @@ def _zero_state(group: list, batch: int, max_len: int) -> dict:
     if t in RECURRENT:
         key, cls = RECURRENT[t]
         one = group[0].recurrent().init_state(batch)
-        return {key: cls(*(torch.stack([a] * len(group)) for a in one))}
+        return {key: cls(*(place(torch.stack([a] * len(group)), (None, "batch"))
+                           for a in one))}
     window = group[0].attn.window
     return {"attn": _zero_cache(group, batch, max_len if window is None
                                 else min(window, max_len))}
@@ -306,7 +310,8 @@ class TransformerLM(Module):
         self.embed = Embedding(cfg.vocab, cfg.d_model, cfg.dtype)
         self.final_norm = _norm(cfg, "final_norm")
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype, name="lm_head")
+            self.lm_head = Dense(cfg.d_model, cfg.vocab, False, cfg.dtype, name="lm_head",
+                                 axes=("embed", "vocab"))
         self.blocks = Module()
         for i, (t, n) in enumerate(self.groups):
             self.blocks.add_module(f"g{i}_{t}", stack_params(
@@ -385,17 +390,18 @@ class TransformerLM(Module):
         if self.cfg.is_encdec:
             with tracer.scope("encoder"):
                 context = self.encode(enc_embeds, impl=impl)
+        x = constrain(x, ("batch", None, None))
         aux = 0.0  # a tensor from the first MoE layer on: no op where there is none
         for i, group in enumerate(self.layers()):
             for j, layer in enumerate(group):
                 def body(x, aux, layer=layer):
                     y, a, _ = layer.forward_aux(x, positions=positions, context=context, impl=impl)
-                    return y, aux + a
+                    return constrain(y, ("batch", None, None)), aux + a
 
                 with tracer.scope(self._scope(i, j)):
                     x, aux = _remat(body, remat)(x, aux)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
-        return self._logits(self.final_norm(x)), aux
+        return constrain(self._logits(self.final_norm(x)), ("batch", None, "model")), aux
 
     def loss(self, batch: dict, *, impl: str = "auto", remat: str = "none") -> torch.Tensor:
         """The reference's training loss of ``batch`` (``tokens`` or

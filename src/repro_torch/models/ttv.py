@@ -55,10 +55,9 @@ class TemporalAttention(Module):
         self.head_channels, self.name = head_channels, name
         inner = self.n_heads * head_channels
         self.ln = LayerNorm(channels, dtype=dtype, name="ln")
-        self.wq = Dense(channels, inner, True, dtype, name="wq")
-        self.wk = Dense(channels, inner, True, dtype, name="wk")
-        self.wv = Dense(channels, inner, True, dtype, name="wv")
-        self.out = Dense(inner, channels, True, dtype, name="out")
+        self.wq, self.wk, self.wv = (Dense(channels, inner, True, dtype, name=n,
+                                           axes=("embed", "heads")) for n in ("wq", "wk", "wv"))
+        self.out = Dense(inner, channels, True, dtype, name="out", axes=("heads", "embed"))
 
     def forward(self, x: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
         B, F, H, W, C = x.shape
@@ -219,8 +218,8 @@ class _PhenakiLayer(Module):
         self.ln_c = LayerNorm(c.d_model, dtype=c.dtype, name="ln_c")
         self.cross = Attention(c.d_model, c.n_heads, hd, cross=True, dtype=c.dtype, name="cross")
         self.ln_f = LayerNorm(c.d_model, dtype=c.dtype, name="ln_f")
-        self.ff_in = Dense(c.d_model, c.d_ff, True, c.dtype, name="ff_in")
-        self.ff_out = Dense(c.d_ff, c.d_model, True, c.dtype, name="ff_out")
+        self.ff_in = Dense(c.d_model, c.d_ff, True, c.dtype, name="ff_in", axes=("embed", "mlp"))
+        self.ff_out = Dense(c.d_ff, c.d_model, True, c.dtype, name="ff_out", axes=("mlp", "embed"))
 
     def forward(self, x, ctx, *, impl="auto"):
         B, S, d = x.shape
@@ -249,13 +248,15 @@ class PhenakiModel(Module):
         self.cfg = cfg
         c = cfg
         self.text = TextEncoder(c.text)
-        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype, name="ctx_proj")
+        self.ctx_proj = Dense(c.text.d_model, c.d_model, False, c.dtype, name="ctx_proj",
+                              axes=(None, "embed"))
         # +1: the mask token
         self.embed = Embedding(c.video_vocab + 1, c.d_model, c.dtype, name="vid_embed")
         self.param("pos", (c.frames * c.tokens_per_frame, c.d_model), normal_init(0.01),
-                   c.dtype)
+                   c.dtype, axes=(None, "embed"))
         self.final_ln = LayerNorm(c.d_model, dtype=c.dtype, name="final_ln")
-        self.head = Dense(c.d_model, c.video_vocab, False, c.dtype, name="head")
+        self.head = Dense(c.d_model, c.video_vocab, False, c.dtype, name="head",
+                          axes=("embed", "vocab"))
         for i in range(c.n_layers):
             self.add_module(f"layer{i}", _PhenakiLayer(c))
 

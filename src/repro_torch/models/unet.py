@@ -24,6 +24,7 @@ from repro_torch.models.layers.basic import Dense, sinusoidal_embedding
 from repro_torch.models.layers.conv import Conv2D, fused_gn_producer
 from repro_torch.models.layers.norms import GroupNorm, LayerNorm
 from repro_torch.nn import Module
+from repro_torch.parallel.sharding import concat_unsharded
 
 
 def _record_pointwise(name, x, reads=1):
@@ -64,7 +65,7 @@ class ResBlock(Module):
         self.g1, self.g2 = min(groups, c_in), min(groups, c_out)
         self.gn1 = GroupNorm(c_in, self.g1, fuse_silu=True, dtype=dtype, name="gn1")
         self.conv1 = Conv2D(c_in, c_out, 3, dtype=dtype, name="conv1")
-        self.temb = Dense(temb_dim, c_out, True, dtype, name="temb_proj")
+        self.temb = Dense(temb_dim, c_out, True, dtype, name="temb_proj", axes=(None, "conv_out"))
         self.gn2 = GroupNorm(c_out, self.g2, fuse_silu=True, dtype=dtype, name="gn2")
         self.conv2 = Conv2D(c_out, c_out, 3, dtype=dtype, name="conv2")
         if c_in != c_out:
@@ -108,9 +109,11 @@ class _TransformerLayer(Module):
         self.ln1 = LayerNorm(channels, dtype=dtype, name="ln1")
         self.self_attn = attn(False, "self_attn")
         self.ln3 = LayerNorm(channels, dtype=dtype, name="ln3")
-        self.ff_in = Dense(channels, 4 * channels, True, dtype, name="ff_in")
-        self.ff_gate = Dense(channels, 4 * channels, True, dtype, name="ff_gate")
-        self.ff_out = Dense(4 * channels, channels, True, dtype, name="ff_out")
+        self.ff_in = Dense(channels, 4 * channels, True, dtype, name="ff_in", axes=("embed", "mlp"))
+        self.ff_gate = Dense(channels, 4 * channels, True, dtype, name="ff_gate",
+                             axes=("embed", "mlp"))
+        self.ff_out = Dense(4 * channels, channels, True, dtype, name="ff_out",
+                            axes=("mlp", "embed"))
         if cross:
             self.ln2 = LayerNorm(channels, dtype=dtype, name="ln2")
             self.cross_attn = attn(True, "cross_attn")
@@ -126,10 +129,13 @@ class SpatialTransformer(Module):
         self.cross, self.depth = cross, depth
         n_heads = fixed_heads or max(1, channels // head_channels)
         self.gn = GroupNorm(channels, min(groups, channels), dtype=dtype, name="gn")
-        self.proj_in = Dense(channels, channels, True, dtype, name="proj_in")
-        self.proj_out = Dense(channels, channels, True, dtype, name="proj_out")
+        self.proj_in = Dense(channels, channels, True, dtype, name="proj_in",
+                             axes=("embed", "embed2"))
+        self.proj_out = Dense(channels, channels, True, dtype, name="proj_out",
+                              axes=("embed", "embed2"))
         if cross:
-            self.ctx_proj = Dense(context_dim, channels, False, dtype, name="ctx_proj")
+            self.ctx_proj = Dense(context_dim, channels, False, dtype, name="ctx_proj",
+                                  axes=(None, "embed"))
         for i in range(depth):
             self.add_module(f"layer{i}", _TransformerLayer(
                 channels, n_heads, channels // n_heads, cross, dtype))
@@ -220,8 +226,8 @@ class UNet2D(Module):
         self.cfg = cfg
         dt, mc = cfg.dtype, cfg.model_channels
         self.conv_in = Conv2D(cfg.in_channels, mc, 3, dtype=dt, name="conv_in")
-        self.temb1 = Dense(mc, cfg.temb_dim, True, dt)
-        self.temb2 = Dense(cfg.temb_dim, cfg.temb_dim, True, dt)
+        self.temb1 = Dense(mc, cfg.temb_dim, True, dt, axes=(None, "mlp"))
+        self.temb2 = Dense(cfg.temb_dim, cfg.temb_dim, True, dt, axes=("mlp", "mlp2"))
         self.gn_out = GroupNorm(mc, min(cfg.groups, mc), fuse_silu=True, dtype=dt)
         self.conv_out = Conv2D(mc, cfg.out_channels, 3, dtype=dt, name="conv_out")
         self.plan = unet_plan(cfg)
@@ -281,7 +287,9 @@ class UNet2D(Module):
         for si, blocks in enumerate(self.plan["up"]):
             for bi, (kind, _, _) in enumerate(blocks):
                 if kind == "res":
-                    h = torch.cat([h, skips.pop()], dim=-1)
+                    # channel concat pinned unsharded: conv-channel TP
+                    # shards the skip's channels
+                    h = concat_unsharded([h, skips.pop()], axis=-1)
                 h = run(f"up_{si}_{bi}_{kind}", kind, h)
 
         if conv_ops.is_fused(impl):

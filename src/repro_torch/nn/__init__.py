@@ -10,6 +10,7 @@ from repro_torch.nn.module import (
     ones_init,
     param_defs,
     scaled_init,
+    specs_of,
     stack_params,
     trainable,
     zeros_init,
@@ -17,6 +18,6 @@ from repro_torch.nn.module import (
 
 __all__ = [
     "Module", "ParamDef", "from_jax_params", "init_module", "init_params", "layer_views",
-    "materialize", "normal_init", "ones_init", "param_defs", "scaled_init", "stack_params",
-    "trainable", "zeros_init",
+    "materialize", "normal_init", "ones_init", "param_defs", "scaled_init", "specs_of",
+    "stack_params", "trainable", "zeros_init",
 ]

@@ -81,6 +81,13 @@ class ParamDef:
     init: Callable = normal_init()
     dtype: Any = torch.float32
     layers: int = 0
+    axes: tuple = ()
+
+    def __post_init__(self):
+        if not self.axes:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamDef shape {self.shape} and axes {self.axes} rank mismatch")
 
     def draw(self, gen: torch.Generator, out: torch.Tensor | None = None) -> torch.Tensor:
         """The leaf's values from ``gen``, written into ``out`` (any device)
@@ -121,9 +128,13 @@ class Module(torch.nn.Module):
         super().__init__()
         self.param_defs: dict[str, ParamDef] = {}
 
-    def param(self, name: str, shape: tuple, init: Callable, dtype, layers: int = 0) -> None:
+    def param(self, name: str, shape: tuple, init: Callable, dtype, layers: int = 0, *,
+              axes: tuple = ()) -> None:
+        """Declare ``name``; ``axes`` are its logical axis names, one a dim
+        (the reference's ``ParamDef.axes``; all None when not given), which
+        ``parallel.sharding`` maps onto a mesh."""
         shape = tuple(int(s) for s in shape)
-        self.param_defs[name] = ParamDef(shape, init, dtype, layers)
+        self.param_defs[name] = ParamDef(shape, init, dtype, layers, tuple(axes))
         self.register_parameter(name, torch.nn.Parameter(
             torch.empty(shape, dtype=dtype, device="meta"), requires_grad=False))
 
@@ -135,7 +146,7 @@ def stack_params(module: torch.nn.Module, n: int) -> torch.nn.Module:
     so a JAX tree bridges with no restacking."""
     for mod in module.modules():
         for name, d in list(getattr(mod, "param_defs", {}).items()):
-            mod.param(name, (n, *d.shape), d.init, d.dtype, layers=n)
+            mod.param(name, (n, *d.shape), d.init, d.dtype, layers=n, axes=("layers", *d.axes))
     return module
 
 
@@ -184,6 +195,12 @@ def param_defs(module: torch.nn.Module) -> dict[str, ParamDef]:
         for name, d in getattr(mod, "param_defs", {}).items():
             out[f"{prefix}.{name}" if prefix else name] = d
     return out
+
+
+def specs_of(module: torch.nn.Module) -> dict[str, tuple]:
+    """The logical axis names of every declared parameter by its
+    ``state_dict`` key (the reference's ``specs()``, flattened)."""
+    return {key: d.axes for key, d in param_defs(module).items()}
 
 
 def _leaf_generator(seed: int, key: str) -> torch.Generator:

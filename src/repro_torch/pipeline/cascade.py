@@ -19,6 +19,7 @@ concurrency, and the modeled lockstep-vs-pipelined comparison behind
 from __future__ import annotations
 
 from repro_torch.core import tracer
+from repro_torch.parallel.sharding import check_mesh
 from repro_torch.pipeline.stage import (
     ParkedTask,
     StageBuffer,
@@ -63,9 +64,6 @@ class CascadePipeline:
     def __init__(self, workload, params, *, impl: str = "auto", pod_size: int = 4,
                  queue_capacity: int = 8, seed: int = 0, stage_impl: dict | None = None,
                  temperature: float = 0.0, spans: SpanCollector | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("per-stage device slices of a mesh are not ported yet "
-                                      "(ROADMAP.md, open items 1.3: multi-GPU)")
         self.workload = workload
         # the owning engine passes its collector: spans join its timeline
         self.spans = spans if spans is not None else SpanCollector("pipeline")
@@ -80,9 +78,22 @@ class CascadePipeline:
             raise ValueError("workload has no cost-descriptor stages")
         batches = stage_batch_sizes(self.stages, self.pod_size, self.queue_capacity)
         impls = resolve_stage_impls(self.stages, impl, stage_impl)
+        # per-stage rank slices: the mesh carved into one contiguous slice a
+        # stage, each with its own copy of the params sharded on it
+        self.mesh = check_mesh(mesh)
+        if mesh is not None:
+            from repro_torch.parallel.mesh_exec import stage_mesh_slices
+
+            self.stage_meshes = stage_mesh_slices(self.stages, mesh)
+            self.stage_params = [workload.shard_params(params, m) for m in self.stage_meshes]
+        else:
+            self.stage_meshes = [None] * len(self.stages)
+            self.stage_params = [params] * len(self.stages)
+        self.reshard_events = 0  # handoffs between different rank slices
+        self.reshard_bytes = 0
         self.executors = [
             StageExecutor(workload, s, impl=im, max_batch=b, temperature=temperature,
-                          stage_index=i)
+                          stage_index=i, mesh=self.stage_meshes[i])
             for i, (s, b, im) in enumerate(zip(self.stages, batches, impls))]
         # buffers[i] feeds stage i; buffers[0] is the unbounded admission
         # queue (the serving scheduler is its backpressure)
@@ -167,7 +178,7 @@ class CascadePipeline:
             for t in tasks:  # queue-wait slice: push tick -> this dispatch
                 self.spans.span("queue", cat="queue", start_tick=t.enqueued,
                                 end_tick=self.ticks, lane=name, rid=t.rid)
-            new_tasks = ex.run_batch(self.params, tasks, self.seed, self.device)
+            new_tasks = ex.run_batch(self.stage_params[i], tasks, self.seed, self.device)
             self.spans.span(name, cat="exec", start_tick=self.ticks, dur_ticks=1.0,
                             dur_s=ex.last_service_s, lane=name, batch=len(tasks),
                             impl=ex.effective_impl)
@@ -178,6 +189,7 @@ class CascadePipeline:
                 self.completed += len(new_tasks)
             else:
                 self._handoff(i, new_tasks)
+                self._reshard(i, new_tasks)
                 for t in new_tasks:
                     out_buf.push(self._task(t.rid, t.state, i + 1), now=self.ticks)
         for b in self.buffers:
@@ -198,6 +210,28 @@ class CascadePipeline:
             payload = sum(state_nbytes(t.state) for t in tasks)
             tracer.record("other", f"handoff/{src}->{dst}", flops=0.0, bytes_hbm=2.0 * payload,
                           batch=len(tasks), stage=src)
+
+    def _reshard(self, stage_idx: int, tasks: list[StageTask]) -> None:
+        """A handoff whose next stage runs on another slice of the ranks: the
+        state has left the producer's ranks for every rank (the producer's
+        first rank broadcasts it at the end of the stage,
+        ``mesh_exec.run_stage_on_mesh``), and the consumer's ranks shard it
+        again when its stage runs.  Counted as the reference counts it: one
+        event a handoff between different rank sets, the states' bytes."""
+        cur, nxt = self.stage_meshes[stage_idx], self.stage_meshes[stage_idx + 1]
+        if cur is None or nxt is None:
+            return
+        from repro_torch.parallel.mesh_exec import mesh_ranks
+
+        if set(mesh_ranks(cur)) == set(mesh_ranks(nxt)):
+            return
+        payload = sum(state_nbytes(t.state) for t in tasks)
+        self.reshard_events += 1
+        self.reshard_bytes += payload
+        if tracer.active():
+            src, dst = self.stages[stage_idx].name, self.stages[stage_idx + 1].name
+            tracer.record("other", f"reshard/{src}->{dst}", flops=0.0,
+                          bytes_hbm=float(payload), batch=len(tasks), stage=src)
 
     def run(self) -> dict:
         """Drain everything submitted so far; returns {rid: output}."""
@@ -266,6 +300,18 @@ class CascadePipeline:
             t["requested"] = sorted(t["requested"])
             t["rps"] = (t["items"] / t["exec_s"]) if t["exec_s"] else 0.0
         conc = self.concurrency
+        mesh_report = None
+        if self.mesh is not None:
+            from repro_torch.parallel.sharding import mesh_shape
+
+            mesh_report = {
+                "axes": mesh_shape(self.mesh),
+                "devices": int(self.mesh.size()),
+                "stage_devices": {s.name: int(m.size())
+                                  for s, m in zip(self.stages, self.stage_meshes)},
+                "reshard_events": int(self.reshard_events),
+                "reshard_bytes": int(self.reshard_bytes),
+            }
         return {
             "stages": per_stage,
             "tiers": tiers,
@@ -277,4 +323,5 @@ class CascadePipeline:
             "concurrency": {"max": max(conc) if conc else 0,
                             "mean": (sum(conc) / len(conc)) if conc else 0.0},
             "hbm": self.modeled_comparison(),
+            **({"mesh": mesh_report} if mesh_report is not None else {}),
         }

@@ -191,8 +191,9 @@ class StageExecutor:
     ``(seed, rid, stage_index)`` contract keys each request's generator on."""
 
     def __init__(self, workload, stage, *, impl: str = "auto", max_batch: int = 4,
-                 temperature: float = 0.0, stage_index: int = 0):
+                 temperature: float = 0.0, stage_index: int = 0, mesh=None):
         self.workload = workload
+        self.mesh = mesh  # optional per-stage slice of the ranks (see cascade.py)
         self.stage = stage
         self.stage_index = stage_index
         self.impl = impl
@@ -223,9 +224,12 @@ class StageExecutor:
         batched = stack_states([t.state for t in tasks])
         gens = [stage_generator(seed, t.rid, self.stage_index) for t in tasks]
         t0 = time.perf_counter()
+        # forwarded only when set, so mesh-free run_stage doubles keep working
+        mesh_kw = {} if self.mesh is None else {"mesh": self.mesh}
         with tracer.scope(self.stage.name):  # the scope ``generate`` opens too
             new = self.workload.run_stage(params, self.stage, batched, gens,
-                                          impl=self.impl, temperature=self.temperature)
+                                          impl=self.impl, temperature=self.temperature,
+                                          **mesh_kw)
         synchronize(device)
         dt = time.perf_counter() - t0
         self.exec_s += dt
@@ -239,8 +243,9 @@ class StageExecutor:
 
     def summary(self) -> dict:
         """Per-stage serving report: batch counts, tiers, throughput, and
-        the p50/p95 per-batch service-time sample."""
-        return {
+        the p50/p95 per-batch service-time sample (and the stage's slice of
+        the ranks, on a mesh)."""
+        out = {
             "batches": self.batches,
             "items": self.items,
             "exec_s": self.exec_s,
@@ -251,3 +256,8 @@ class StageExecutor:
             "service_s": self.service_s.summary(),
             "throughput_rps": (self.items / self.exec_s) if self.exec_s else 0.0,
         }
+        if self.mesh is not None:
+            from repro_torch.parallel.sharding import mesh_shape
+
+            out["mesh"] = {"axes": mesh_shape(self.mesh), "devices": int(self.mesh.size())}
+        return out

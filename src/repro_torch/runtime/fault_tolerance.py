@@ -11,9 +11,10 @@ Protocol, as the reference's:
   3. A step that raises (a device fault, a numerical escape) is retried up
      to ``max_retries`` times from the last checkpoint, after the save in
      flight has landed.
-  4. ``elastic_resume`` restores the newest checkpoint onto a device; the
-     reference's re-sharding onto another mesh waits for the multi-GPU
-     slice.
+  4. **Elastic re-mesh**: ``elastic_resume`` restores a checkpoint written
+     on one mesh onto another (another data axis, another world size):
+     checkpoints hold each leaf whole, so re-sharding is placing each leaf
+     with the new shardings.
 """
 
 from __future__ import annotations
@@ -92,6 +93,9 @@ class FaultTolerantRunner:
         return state
 
 
-def elastic_resume(ckpt: Checkpointer, state_like, device=None):
-    """The newest checkpoint in ``state_like``'s structure, on ``device``."""
-    return ckpt.restore(state_like, device=device)
+def elastic_resume(ckpt: Checkpointer, state_like, new_shardings=None, device=None):
+    """The newest checkpoint in ``state_like``'s structure, each leaf placed
+    by ``new_shardings`` (a tree like ``state_like``'s of
+    ``parallel.sharding.NamedSharding``; a mesh other than the writer's), or
+    on ``device``."""
+    return ckpt.restore(state_like, device=device, shardings=new_shardings)

@@ -43,6 +43,14 @@ from typing import Any
 
 import numpy as np
 
+from repro_torch.nn import specs_of
+from repro_torch.parallel.sharding import (
+    REPLICATION_FALLBACKS,
+    SERVE_TP_RULES,
+    check_mesh,
+    mesh_shape,
+    shard_report,
+)
 from repro_torch.pipeline import CascadePipeline
 from repro_torch.serving.scheduler import (
     BucketedScheduler,
@@ -74,8 +82,13 @@ class ServeConfig:
     it).  ``route`` is the serve route: ``"auto"`` takes the workload's
     (``"lm"`` or ``"pod"``), ``"cascade"`` the stage-level pipeline.
     ``tick_seconds`` maps the tick clock to wall time; ``None`` calibrates it
-    from the median busy-tick time.  ``mesh`` (sharded serving) is not
-    ported yet and is refused."""
+    from the median busy-tick time.  ``mesh`` (a torch ``DeviceMesh`` with
+    ``data``/``model`` axes, e.g. from ``repro_torch.launch.mesh.make_debug_mesh``)
+    turns on sharded serving, SPMD on every rank: params are TP-sharded once
+    at engine construction, every stage runs with its batch sharded over
+    ``data``, and the cascade route carves the mesh into per-stage rank
+    slices.  ``stats["mesh"]`` reports the axes and the sharded-vs-replicated
+    param bytes ("TP coverage")."""
 
     max_batch: int = 4
     max_len: int = 256
@@ -90,7 +103,7 @@ class ServeConfig:
     admission: str = "continuous"  # "continuous" | "pod" (online pod flush)
     arrival_flush_wait: int = 2  # ticks a partial pod waits before flushing
     tick_seconds: float | None = None  # None -> calibrate from measurement
-    mesh: Any = None  # sharded serving: refused
+    mesh: Any = None  # optional torch DeviceMesh ("data"/"model") -> sharded serving
 
     @property
     def resolved_pod_size(self) -> int:
@@ -106,9 +119,7 @@ class ServeConfig:
         if self.tick_seconds is not None and self.tick_seconds <= 0:
             raise ValueError(f"tick_seconds must be > 0 (or None to auto-calibrate), "
                              f"got {self.tick_seconds}")
-        if self.mesh is not None:
-            raise NotImplementedError("sharded serving over a device mesh is not ported yet "
-                                      "(ROADMAP.md, open items 1.3: multi-GPU)")
+        check_mesh(self.mesh)
 
 
 class ServeEngine:
@@ -121,6 +132,15 @@ class ServeEngine:
         self.workload = workload
         self.cfg = workload.cfg
         self.model = workload.model
+        # -- sharded serving: place params on the mesh ONCE, here ------------
+        self.mesh = serve_cfg.mesh
+        self._mesh_report = None
+        if self.mesh is not None:
+            before = REPLICATION_FALLBACKS.value
+            params = workload.shard_params(params, self.mesh)
+            self._mesh_report = shard_report(params, specs_of(workload.model), self.mesh,
+                                             SERVE_TP_RULES)
+            self._mesh_report["replication_fallbacks"] = REPLICATION_FALLBACKS.value - before
         self.params = params
         self.serve_cfg = serve_cfg
         self.cost = workload.cost_descriptor()
@@ -138,6 +158,12 @@ class ServeEngine:
         self.pipeline = None
         # -- telemetry: typed metrics + lifecycle spans ----------------------
         self.metrics = MetricsRegistry()
+        if self.mesh is not None:
+            self.stats["mesh"] = {"axes": mesh_shape(self.mesh), "devices": int(self.mesh.size()),
+                                  "params": self._mesh_report}
+            self.metrics.counter("sharding_replication_fallbacks",
+                                 "param dims replicated by the divisibility fallback",
+                                 ).inc(self._mesh_report["replication_fallbacks"])
         self.spans = SpanCollector(track="engine")
         self._requests_c = self.metrics.counter("requests_submitted",
                                                 "requests accepted by submit()")
@@ -171,7 +197,7 @@ class ServeEngine:
                 workload, params, impl=serve_cfg.impl, stage_impl=serve_cfg.stage_impl,
                 temperature=serve_cfg.temperature, pod_size=serve_cfg.resolved_pod_size,
                 queue_capacity=serve_cfg.queue_capacity, seed=serve_cfg.seed,
-                spans=self.spans)
+                spans=self.spans, mesh=self.mesh)
             self.stats.update(generate_s=0.0, pods=0, bandwidth_profile=[], cascade={})
         elif self.route == "lm":
             self.scheduler = BucketedScheduler(serve_cfg.buckets, serve_cfg.max_batch)
@@ -317,12 +343,14 @@ class ServeEngine:
         """Run one batch of scheduled requests through the stage loop
         (``generate_requests``), as every route does, with the per-stage
         tiers, per-request decode budgets and rids."""
+        # mesh forwarded only when set (mesh-free run_stage doubles keep working)
+        mesh_kw = {} if self.mesh is None else {"mesh": self.mesh}
         return self.workload.generate_requests(
             self.params, self._pad_prompts(requests, width), self.serve_cfg.seed,
             impl=self.serve_cfg.impl, device=self.device, stage_impl=self.serve_cfg.stage_impl,
             temperature=self.serve_cfg.temperature,
             max_new_tokens=[r.max_new_tokens for r in requests],
-            rids=[r.rid for r in requests], on_stage=self._record_stage)
+            rids=[r.rid for r in requests], on_stage=self._record_stage, **mesh_kw)
 
     # -- LM route ------------------------------------------------------------
 

@@ -4,8 +4,7 @@ port of ``repro.telemetry.schema``.
 ``engine.stats`` (per route), ``stats["fleet"]`` (``FleetRouter.summary()``)
 and ``MetricsRegistry.snapshot()`` are the repo's observable contracts —
 ``docs/serving.md`` and ``docs/fleet.md`` describe them, benches and tests
-consume them.  The validator of the mesh block comes with the multi-GPU
-slice of the port.  This module pins them: the stats dict carries a
+consume them.  This module pins them: the stats dict carries a
 ``schema`` version stamp, and the ``validate_*`` functions walk the full
 shape, collecting every violation before raising, so a drive-by key rename
 fails loudly in ``tests/test_torch_serving.py`` or
@@ -188,7 +187,28 @@ def validate_engine_stats(stats: dict, route: str) -> None:
         c.check(False, f"unknown route {route!r}")
     if "fleet" in stats:  # present once a fleet router drained over this engine
         _validate_fleet(c, stats["fleet"], "stats.fleet")
+    if "mesh" in stats:  # optional: present iff serving over a device mesh
+        _validate_mesh(c, stats["mesh"], "stats.mesh")
     c.raise_if_failed(f"engine.stats (route={route!r})")
+
+
+def _validate_mesh(c: _Ctx, m: dict, path: str) -> None:
+    """Mesh block of ``engine.stats``: mesh geometry plus the
+    sharded-vs-replicated param-bytes ("TP coverage") report."""
+    if not c.check(isinstance(m, dict), f"{path}: expected dict"):
+        return
+    if c.check(isinstance(m.get("axes"), dict), f"{path}.axes: expected dict"):
+        for name, size in m["axes"].items():
+            c.check(isinstance(size, int) and size >= 1,
+                    f"{path}.axes[{name}]: expected int >= 1, got {size!r}")
+    c.num(m, "devices", path, minimum=1)
+    if c.check(isinstance(m.get("params"), dict), f"{path}.params: expected dict"):
+        p = m["params"]
+        pp = f"{path}.params"
+        for k in ("sharded_bytes", "replicated_bytes", "total_bytes", "replication_fallbacks"):
+            c.num(p, k, pp, minimum=0)
+        c.num(p, "tp_coverage", pp, minimum=0.0)
+        c.check(float(p.get("tp_coverage", 0.0)) <= 1.0, f"{pp}.tp_coverage: expected <= 1.0")
 
 
 def _validate_fleet(c: _Ctx, s: dict, path: str = "fleet") -> None:

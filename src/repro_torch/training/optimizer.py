@@ -18,7 +18,9 @@ this module keeps:
 
 ``adamw_update`` writes the new parameters and moments into the given
 tensors (no second copy of the state on the card) and returns the same
-dicts, with the reference's metrics.
+dicts, with the reference's metrics.  On a mesh the leaves, gradients and
+moments are DTensors with the parameters' placements (FSDP: the moments
+shard with their weights), and the loop runs on them as it is.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +60,8 @@ def cosine_lr(cfg: AdamWConfig, step) -> float:
 def adamw_init(params: dict) -> dict:
     """``{"step": int32 0, "m": zeros, "v": zeros}``, the moments fp32 on
     each parameter's device."""
-    def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros32(p):  # a DTensor leaf's moments take its placements
+        return torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
 
     return {"step": torch.zeros((), dtype=torch.int32),
             "m": {k: zeros32(p) for k, p in params.items()},
@@ -66,8 +70,10 @@ def adamw_init(params: dict) -> dict:
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32 (a ``None`` leaf
-    is a zero gradient)."""
-    sq = [torch.sum(torch.square(x.float())) for x in tree.values() if x is not None]
+    is a zero gradient).  A DTensor leaf's sum is reduced over every shard
+    (``whole``) before it enters the norm, so the clip sees the global norm
+    on every rank."""
+    sq = [whole(torch.sum(torch.square(x.float()))) for x in tree.values() if x is not None]
     if not sq:
         return torch.zeros((), dtype=torch.float32)
     dev = sq[0].device

@@ -31,6 +31,8 @@ import torch
 from repro_torch.data import make_batch_iterator
 from repro_torch.nn import trainable
 from repro_torch.nn.module import _stable_hash
+from repro_torch.parallel.mesh_exec import mesh_scope, shard_batch
+from repro_torch.parallel.sharding import whole
 from repro_torch.runtime.fault_tolerance import FaultTolerantRunner, RunnerConfig
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 
@@ -96,27 +98,33 @@ def accumulate_grads(losses: Callable, params: dict, microbatches: list, *,
             for j, g in enumerate(grads):
                 if g is not None:
                     acc[j] = g.float() / n if acc[j] is None else acc[j] + g.float() / n
-        loss = loss.detach()
+        loss = whole(loss.detach())  # a DTensor loss, whole on every rank
         total = loss if total is None else total + loss
     return total / n, dict(zip(keys, acc))
 
 
 def make_accumulating_step(loss_fn: Callable, opt_cfg: AdamWConfig, microbatches: int, *,
-                           mark: Callable | None = None):
+                           mark: Callable | None = None, mesh=None):
     """``loss_fn(batch, gen) -> scalar``.  Returns the step
     ``(params, opt_state, batch, seed, step) -> (params, opt_state,
     metrics)``: the batch's leading dim split into ``microbatches`` slices
     whose gradients are averaged, then ``adamw_update`` (in place).
     ``mark(name)``, where given, is called as the forward, the backward
-    and the optimizer begin and when the step ends (``"done"``)."""
+    and the optimizer begin and when the step ends (``"done"``).  With a
+    ``mesh`` (the params DTensors on it) each slice is sharded over the
+    batch axes and the step runs in ``mesh_scope``."""
 
     def step(params, opt_state, batch, seed, step_index):
-        loss, grads = accumulate_grads(
-            lambda i, mb: loss_fn(mb, step_generator(seed, step_index, i)), params,
-            split_microbatches(batch, microbatches), mark=mark)
-        if mark is not None:
-            mark("optimizer")
-        params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
+        mbs = split_microbatches(batch, microbatches)
+        if mesh is not None:
+            mbs = [shard_batch(mb, mesh) for mb in mbs]
+        with mesh_scope(mesh):
+            loss, grads = accumulate_grads(
+                lambda i, mb: loss_fn(mb, step_generator(seed, step_index, i)), params, mbs,
+                mark=mark)
+            if mark is not None:
+                mark("optimizer")
+            params, opt_state, metrics = adamw_update(params, grads, opt_state, opt_cfg)
         if mark is not None:
             mark("done")
         metrics["loss"] = loss
@@ -134,13 +142,15 @@ def _bind(live: dict, values: dict) -> None:
 
 
 def train(model: torch.nn.Module, loss_fn: Callable, data, cfg: TrainConfig, *,
-          device=None, log=print, mark: Callable | None = None) -> tuple[Any, list]:
+          device=None, log=print, mark: Callable | None = None, mesh=None) -> tuple[Any, list]:
     """Run the fault-tolerant training loop on every leaf of ``model``;
     returns (state, loss history).  ``data``: an iterator of batches, or a
     source with ``batch_at(step)`` read from the run's start (onto
-    ``device`` where given)."""
+    ``device`` where given).  With a ``mesh`` the model's leaves are
+    DTensors on it, every rank runs the loop (SPMD) and rank 0 writes the
+    checkpoints."""
     params = trainable(model)
-    step_fn = make_accumulating_step(loss_fn, cfg.opt, cfg.microbatches, mark=mark)
+    step_fn = make_accumulating_step(loss_fn, cfg.opt, cfg.microbatches, mark=mark, mesh=mesh)
     history: list = []
     runner = FaultTolerantRunner(RunnerConfig(
         checkpoint_dir=cfg.checkpoint_dir, checkpoint_every=cfg.checkpoint_every,

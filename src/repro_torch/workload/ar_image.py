@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import characterize, tracer
 from repro_torch.models.ar_image import ARImageConfig, ARImageModel
 from repro_torch.models.vae import DecoderConfig, VQDecoderConfig
+from repro_torch.parallel.mesh_exec import run_stage_on_mesh
 from repro_torch.workload.base import CostDescriptor, GenerativeWorkload, Stage, register_workload
 from repro_torch.workload.diffusion import REDUCED_TEXT
 
@@ -52,7 +53,10 @@ class ARImageWorkload(GenerativeWorkload):
             Stage("text_encoder", 1, cfg.text.max_len), decode,
             Stage("vq_decoder", 1, cfg.vq.token_hw ** 2)))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0, mesh=None):
+        if mesh is not None:
+            return run_stage_on_mesh(self, params, stage, state, gens, impl=impl,
+                                     temperature=temperature, mesh=mesh)
         del gens, temperature  # greedy and confidence-ranked decoding draw nothing
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}

@@ -43,7 +43,7 @@ import torch
 
 from repro_torch.core import tracer
 from repro_torch.kernels.tiers import resolve_model_impl
-from repro_torch.nn import init_module, materialize
+from repro_torch.nn import init_module, materialize, specs_of
 from repro_torch.nn.module import _stable_hash
 
 WORKLOAD_ROUTES = ("lm", "pod")
@@ -240,11 +240,23 @@ class GenerativeWorkload:
     def build_model(self, cfg) -> torch.nn.Module:
         raise NotImplementedError
 
-    def init(self, seed: int, device="cuda") -> torch.nn.Module:
+    def init(self, seed: int, device="cuda", mesh=None) -> torch.nn.Module:
         """The pipeline module with seeded parameters on ``device``: the
         values of ``nn.init_params(self.model, seed)``, drawn leaf by leaf
-        onto the device (``nn.init_module``)."""
-        return init_module(copy.deepcopy(self.model), seed, resolve_device(device))
+        onto the device (``nn.init_module``); with a ``mesh``, sharded once
+        here (:meth:`shard_params`), the serving path's one sharding point."""
+        params = init_module(copy.deepcopy(self.model), seed, resolve_device(device))
+        return params if mesh is None else self.shard_params(params, mesh)
+
+    def shard_params(self, params, mesh):
+        """``params`` with every leaf a DTensor on ``mesh`` under the serving
+        TP rules (weights replicated over ``data``, TP-sharded over
+        ``model``, channel-parallel convs).  Dims that do not divide their
+        axis replicate, with a warning and a count
+        (``parallel.sharding.REPLICATION_FALLBACKS``)."""
+        from repro_torch.parallel.sharding import SERVE_TP_RULES, shard_params_tree
+
+        return shard_params_tree(params, specs_of(self.model), mesh, SERVE_TP_RULES)
 
     def load(self, state: dict, device="cuda") -> torch.nn.Module:
         """The pipeline module with parameters from ``state`` on ``device``."""
@@ -279,17 +291,22 @@ class GenerativeWorkload:
     def generate(self, params, tokens, seed: int, *, impl: str = "auto", device="cuda",
                  max_new_tokens=0, temperature: float = 0.0, rids=None,
                  stage_impl: dict | None = None,
-                 on_stage: Callable | None = None) -> torch.Tensor:
-        """Batched full-pipeline inference: (B, S) tokens -> stacked output."""
+                 on_stage: Callable | None = None, mesh=None) -> torch.Tensor:
+        """Batched full-pipeline inference: (B, S) tokens -> stacked output.
+        With a ``mesh`` (a torch ``DeviceMesh``, ``params`` sharded on it by
+        :meth:`shard_params`) every stage runs SPMD over it, the batch
+        sharded and the weights TP-sharded; outputs do not depend on the
+        mesh (``parallel.mesh_exec``)."""
         return torch.stack(self.generate_requests(
             params, tokens, seed, impl=impl, device=device, max_new_tokens=max_new_tokens,
-            temperature=temperature, rids=rids, stage_impl=stage_impl, on_stage=on_stage))
+            temperature=temperature, rids=rids, stage_impl=stage_impl, on_stage=on_stage,
+            mesh=mesh))
 
     @torch.inference_mode()
     def generate_requests(self, params, tokens, seed: int, *, impl: str = "auto",
                           device="cuda", max_new_tokens=0, temperature: float = 0.0,
                           rids=None, stage_impl: dict | None = None,
-                          on_stage: Callable | None = None) -> list:
+                          on_stage: Callable | None = None, mesh=None) -> list:
         """The loop behind :meth:`generate`, returning per-request outputs:
         the one stage loop of every serve route.  ``max_new_tokens`` is the LM
         decode budget, one for the batch or one a request (the other
@@ -313,12 +330,14 @@ class GenerativeWorkload:
                else [int(max_new_tokens)] * B)
         state = stack_states([self.init_stage_state(tokens[i], p_dev, max_new_tokens=mnt[i])
                               for i in range(B)])
+        # forwarded only when set, so mesh-free run_stage doubles keep working
+        mesh_kw = {} if mesh is None else {"mesh": mesh}
         for idx, stage in enumerate(stages):
             gens = [stage_generator(seed, rid, idx) for rid in rids]
             t0 = time.perf_counter()
             with tracer.scope(stage.name):
                 state = self.run_stage(params, stage, state, gens, impl=impls[idx],
-                                       temperature=temperature)
+                                       temperature=temperature, **mesh_kw)
             if on_stage is not None:
                 synchronize(p_dev)
                 on_stage(stage.name, time.perf_counter() - t0, B)
@@ -341,10 +360,13 @@ class GenerativeWorkload:
         return {"tokens": torch.as_tensor(tokens, dtype=torch.int64).to(device)}
 
     def run_stage(self, params, stage: Stage, state: dict, gens: list, *,
-                  impl: str = "auto", temperature: float = 0.0) -> dict:
+                  impl: str = "auto", temperature: float = 0.0, mesh=None) -> dict:
         """Execute one ``stage`` over batched ``state``; ``gens`` holds one
         :func:`stage_generator` per request; ``temperature`` is the sampling
-        temperature of token-sampling stages (the others ignore it)."""
+        temperature of token-sampling stages (the others ignore it).  With
+        a ``mesh`` implementations delegate to
+        ``parallel.mesh_exec.run_stage_on_mesh``, which shards the batch and
+        re-enters the same body inside ``mesh_scope``."""
         raise NotImplementedError
 
     def stage_group_key(self, stage: Stage, state: dict):

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from repro_torch.core.analytical import unet_block_profile
 from repro_torch.models.diffusion import DiffusionConfig, DiffusionPipeline, SRStage
 from repro_torch.models.text_encoder import TextEncoderConfig
+from repro_torch.parallel.mesh_exec import run_stage_on_mesh
 from repro_torch.workload.base import (
     CostDescriptor,
     GenerativeWorkload,
@@ -91,7 +92,10 @@ class DiffusionWorkload(GenerativeWorkload):
             stages.append(Stage("vae", 1, cfg.image_size ** 2))
         return CostDescriptor(arch=cfg.name, route=self.route, stages=tuple(stages))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0, mesh=None):
+        if mesh is not None:
+            return run_stage_on_mesh(self, params, stage, state, gens, impl=impl,
+                                     temperature=temperature, mesh=mesh)
         del temperature  # denoising samples no tokens
         cfg = self.cfg
         if stage.name == "text_encoder":

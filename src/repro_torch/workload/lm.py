@@ -37,6 +37,8 @@ from repro_torch.configs import reduced
 from repro_torch.configs.base import LMConfig
 from repro_torch.core import characterize, tracer
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.parallel.sharding import whole
+from repro_torch.parallel.mesh_exec import run_stage_on_mesh
 from repro_torch.workload.base import (
     CostDescriptor,
     GenerativeWorkload,
@@ -108,7 +110,10 @@ class LMWorkload(GenerativeWorkload):
             return logits.argmax(-1)[:, None]
         return (logits.float() / temperature + gumbel).argmax(-1)[:, None]
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0, mesh=None):
+        if mesh is not None:
+            return run_stage_on_mesh(self, params, stage, state, gens, impl=impl,
+                                     temperature=temperature, mesh=mesh)
         if stage.name == "prefill":
             if self.cfg.is_encdec:
                 raise ValueError(
@@ -118,7 +123,7 @@ class LMWorkload(GenerativeWorkload):
                     "decode_step(context=) (launch/steps.py)")
             toks = state["tokens"]
             B, S = toks.shape
-            cap = S + int(state["max_new"].max())
+            cap = S + int(whole(state["max_new"]).max())
             logits, caches, _ = params.prefill(toks, impl=impl, max_len=cap)
             gumbel = (self._gumbel(gens, 1, logits.shape[-1], toks.device)[:, 0]
                       if temperature > 0.0 else None)
@@ -132,8 +137,8 @@ class LMWorkload(GenerativeWorkload):
         if stage.name == "decode":
             # layer-first views again: decode_step writes each row in place
             caches = tree_map(lambda a: a.movedim(0, 1), state["caches"])
-            nxt, cur = state["next_tok"], int(state["cur"][0])
-            steps = int(state["max_new"].max())
+            nxt, cur = state["next_tok"], int(whole(state["cur"])[0])
+            steps = int(whole(state["max_new"]).max())
             gumbel = (self._gumbel(gens, steps, self.cfg.vocab, nxt.device)
                       if temperature > 0.0 else None)
             out = []

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.models.diffusion import ddim_range
 from repro_torch.models.ttv import MakeAVideoPipeline, PhenakiConfig, PhenakiModel, TTVConfig
+from repro_torch.parallel.mesh_exec import run_stage_on_mesh
 from repro_torch.workload.base import (
     CostDescriptor,
     GenerativeWorkload,
@@ -71,7 +72,10 @@ class MakeAVideoWorkload(GenerativeWorkload):
         stages.append(Stage("temporal_denoise", tp, cfg.frames * hw * hw, demand=temporal))
         return CostDescriptor(arch=cfg.name, route=self.route, stages=tuple(stages))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0, mesh=None):
+        if mesh is not None:
+            return run_stage_on_mesh(self, params, stage, state, gens, impl=impl,
+                                     temperature=temperature, mesh=mesh)
         del temperature  # denoising samples no tokens
         cfg = self.cfg
         if stage.name == "text_encoder":
@@ -129,7 +133,10 @@ class PhenakiWorkload(GenerativeWorkload):
             Stage("text_encoder", 1, cfg.text.max_len),
             Stage("parallel_decode", cfg.parallel_steps, S, demand=(S,))))
 
-    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0):
+    def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0, mesh=None):
+        if mesh is not None:
+            return run_stage_on_mesh(self, params, stage, state, gens, impl=impl,
+                                     temperature=temperature, mesh=mesh)
         del gens, temperature  # confidence-ranked unmasking draws nothing
         if stage.name == "text_encoder":
             return {"ctx": params.encode_text(state["tokens"], impl=impl)}

@@ -131,7 +131,7 @@ def test_router_rejects_bad_configs(pools):
         fleet.submit("tti", 1, _prompt(wl), slo_tier="bronze")
     with pytest.raises(ValueError, match="engine policy"):
         fleet.replicas[0].choose_pool("lifo")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         FleetRouter(pools, ServeConfig(mesh="2x1"))
 
 

@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port stands alone: no module of ``src/repro_torch``, no
-line of ``chip_smoke.py`` and no line of the card tests
-(``tests/test_torch_cuda.py``) imports ``jax`` or the JAX package ``repro``."""
+line of ``chip_smoke.py``, no line of the card tests
+(``tests/test_torch_cuda.py``) and none of the gloo tests' rank bodies
+(``tests/torch_mesh_ranks.py``) imports ``jax`` or the JAX package ``repro``."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 # the port, its chip run, and its card tests (which run where JAX is absent)
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "torch_mesh_ranks.py"]
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -56,7 +58,9 @@ def test_checked_files_include_the_ttv_slice():
                 "configs/qwen2_vl_2b.py", "launch/steps.py", "launch/train.py",
                 "training/optimizer.py", "training/trainer.py", "checkpoint/checkpointer.py",
                 "runtime/fault_tolerance.py", "data/pipeline.py", "kernels/vjp.py",
-                "runtime/straggler.py", "training/compression.py"):
+                "runtime/straggler.py", "training/compression.py", "parallel/__init__.py",
+                "parallel/sharding.py", "parallel/mesh_exec.py", "launch/mesh.py",
+                "kernels/shards.py"):
         assert port / rel in PORT_FILES
 
 

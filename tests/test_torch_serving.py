@@ -403,10 +403,11 @@ def test_stage_impl_reaches_run_stage_as_the_ports_tiers(tiny, monkeypatch):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh is a torch ``DeviceMesh``; anything else is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ServeConfig(mesh=object())
     wl = workload_for(TINY_TTI_CASCADE)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         CascadePipeline(wl, wl.init(0, "cpu"), mesh=object())
 
 
@@ -621,12 +622,12 @@ def test_launcher_draws_the_references_prompts():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh", "2x1"], "multi-GPU"),
+    (["--mesh", "2x1"], "world of 2"),
     (["--replicas", "2", "--arrivals", "closed-loop", "--requests", "3"], "fleet"),
     (["--router", "slo", "--autoscale", "3:2"], "fleet"), (["--autoscale", "1"], "fleet"),
     (["--arrival-rps", "2"], "tick-seconds"), (["--stage-impl", "sr"], "name=tier")])
 def test_launcher_refuses_what_is_not_ported_or_malformed(flags, match):
-    """Sharded serving is not ported; a fleet needs timed arrivals and a
+    """A mesh needs a world of its size; a fleet needs timed arrivals and a
     MIN:MAX autoscale range; the other flags need their partners."""
     with pytest.raises(SystemExit, match=match):
         launcher.main(["--arch", "imagen", "--reduced", "--device", "cpu", "--requests", "1",
