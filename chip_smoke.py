@@ -3,7 +3,8 @@
 Usage, from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py olmo-1b fleet`` runs just the named paths and
 phase 8b, ``python3 chip_smoke.py whisper-base qwen2-vl-2b`` just the
-enc-dec and VLM paths, ``python3 chip_smoke.py train`` just phase 9, for a
+enc-dec and VLM paths, ``python3 chip_smoke.py train`` just phase 9,
+``python3 chip_smoke.py dryrun`` the olmo-1b path and phase 11, for a
 shorter call while a path is being brought up.)
 
 Seventeen paths, each at full published width with random weights from a
@@ -23,45 +24,48 @@ seed, 2 requests each:
     and temporal attention at F = 11);
   - LLaMA2-7B, the LM baseline in fp32 (2048-token prompts: one causal
     prefill through flash attention, then 64 greedy decode steps against a
-    KV cache);
-  - Parti, autoregressive text-to-image in bf16 (21.9 B parameters, 87.6 GB
-    in fp32, do not fit the card): 80 causal layers of d 4096 decode image
+    KV cache), cut to ``LLAMA_LAYERS`` = 8 of its 32 identical layers;
+  - Parti, autoregressive text-to-image in bf16 (21.9 B parameters at full
+    depth, 87.6 GB in fp32, do not fit the card): causal layers of d 4096,
+    cut to ``PARTI_LAYERS`` = 8 of its 80 identical ones, decode image
     tokens one at a time against a KV cache (the main path decodes the first
     64 of its 1024: ms a token is its reading), then a VQ-GAN decoder to
     256x256; flash attention in the text encoder, conv2d in the decoder;
   - the dense assigned LMs in fp32, as LLaMA but with 16 new tokens:
     olmo-1b (non-parametric LayerNorm, the tied head over a vocab of 50304),
-    stablelm-3b (LayerNorm, 32 heads of 80 with 20 rotary dims) and glm4-9b
-    (GQA 32:2, QKV bias, a vocab of 151552) cut to 10 of its 40 layers
-    (its 40 identical layers launch one attention call each at one shape,
-    so 10 keep every per-call shape, and the time saved funds the
-    sub-quadratic paths and phase 9).  qwen2-72b (291 GB in fp32) fits no
+    stablelm-3b (LayerNorm, 32 heads of 80 with 20 rotary dims) cut to 8
+    of its 32 layers and glm4-9b (GQA 32:2, QKV bias, a vocab of 151552)
+    cut to 5 of its 40 (identical layers launch one attention call each
+    at one shape, so a cut keeps every per-call shape, and the time saved
+    funds the later paths and phases).  qwen2-72b (291 GB in fp32) fits no
     single card and waits for several;
-  - the MoE assigned LMs in fp32, as the dense ones: deepseek-moe-16b at
-    full depth (28 layers: a dense first layer, then 27 of 64 routed
-    experts of 1408, top-6, and 2 shared; 16.4 B params, 65.5 GB) and
+  - the MoE assigned LMs in fp32, as the dense ones: deepseek-moe-16b cut
+    to 4 of its 28 layers (a dense first layer, then 3 of 64 routed experts
+    of 1408, top-6, and 2 shared; 16.4 B params at full depth) and
     qwen3-moe-30b-a3b (GQA 32:4 with qk-norm, 128 experts of 768, top-8)
-    cut to 12 of its 48 layers (8.1 B params, 32 GB): its 48 identical MoE
-    layers are 122 GB in fp32, and in bf16 (61 GB) they would add no
-    operator the 12 lack.  The prefill drops assignments past capacity
+    cut to 3 of its 48 layers: its 48 identical MoE layers are 122 GB in
+    fp32, and more of them would add no operator the 3 lack.  The prefill
+    drops assignments past capacity
     (1.25: 480 rows an expert for deepseek's 2 x 2048 tokens, 320 for
     qwen3's), as the reference does, so a prompt's tokens depend on what it
     was batched with: no phase 8 for them.  Each decode step runs with
     ``no_drop`` and so reads every expert's weights;
-  - the sub-quadratic assigned LMs in fp32 at full depth, 16 greedy new
-    tokens: mamba2-780m (48 Mamba-2 SSD mixers, 2048-token prompts; it
-    launches no hand kernel: attention-free, and its depthwise conv is the
-    reference's ``lax.conv``, not a Pallas kernel) and recurrentgemma-9b (26
-    RG-LRU blocks and 12 local-attention layers of MQA 16:1 at D = 256,
-    window 2048; 9.4 B params, 37.6 GB), on **3072-token** prompts: at 2048
+  - the sub-quadratic assigned LMs in fp32, 16 greedy new tokens:
+    mamba2-780m cut to 12 of its 48 Mamba-2 SSD mixers (2048-token prompts;
+    it launches no hand kernel: attention-free, and its depthwise conv is
+    the reference's ``lax.conv``, not a Pallas kernel) and recurrentgemma-9b
+    cut to 6 of its 38 layers, two whole turns of its pattern (4 RG-LRU
+    blocks and 2 local-attention layers of MQA 16:1 at D = 256, window
+    2048; 9.4 B params at full depth), on **3072-token** prompts: at 2048
     the window would mask nothing, at 3072 the flash kernel masks the early
     keys of the last 1024 rows (and skips whole key tiles), the ring cache
     is rolled by 1024 and decode wraps it.  ``[recurrent]`` lines give the
     prefill's and a decode step's measured and modeled ``scan`` shares (the
     SSD's chunk products and cross-chunk loop, the RG-LRU's gates and
     doubling scan).  Neither is served in phase 8;
-  - qwen2-vl-2b in fp32 at full depth (28 layers of GQA 12:2 at D = 128,
-    M-RoPE, a tied head over 151936 tokens; 1.54 B params), as the dense
+  - qwen2-vl-2b in fp32, cut to ``VLM_LAYERS`` = 14 of its 28 layers (GQA
+    12:2 at D = 128, M-RoPE, a tied head over 151936 tokens; 1.54 B params
+    at full depth), as the dense
     LMs on 2048-token prompts (three equal M-RoPE streams), then its own
     phase ``[mrope]``: the stub frontend's inputs, embeddings (2, 2048,
     1536) with an image prompt's three distinct M-RoPE streams (16 text
@@ -149,7 +153,7 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
                  the CPU plain path; decoded tokens must be equal
   8. serve    -- the serving engine at full width, on the path's model
                  (``[serve]`` lines): Stable Diffusion through the launcher
-                 ``python -m repro_torch.launch.serve`` in a subprocess (16
+                 ``python -m repro_torch.launch.serve`` in a subprocess (4
                  requests, cascade, poisson arrivals; its stats held to the
                  schema), then 4 prompts on the pod and cascade routes and
                  through ``generate``, held to one another; Imagen on the
@@ -234,13 +238,34 @@ Phases 3-7 run for each path in turn, phase 8 on three of them, then phase
                  checkpoint and 2 more, parameters equal bit for bit (or
                  within 1e-6 relative, logged) under deterministic
                  algorithms
+ 10. mesh     -- (``[mesh]`` lines, ``python3 chip_smoke.py mesh``) an NCCL
+                 world of one and a 1x1 mesh: the five kernels' DTensor
+                 boundaries, SD's pod route and olmo-1b's lm route against
+                 the mesh-free engine, two FSDP train steps (``run_mesh``)
+ 11. dryrun   -- (``[dryrun]`` lines, ``python3 chip_smoke.py dryrun``: the
+                 olmo-1b path and this phase) the compiled-program analyses.
+                 11a: ``python -m repro_torch.launch.dryrun --arch olmo-1b
+                 --shape train_4k --single-pod-only`` in a subprocess started
+                 after the build, on the host beside the card's phases: a
+                 256-rank fake world on ``meta``, 16 microbatches; its record
+                 must be ``ok`` with the depth fit equal to the direct count.
+                 11b, in the olmo-1b path on its model: the prefill of 2 x
+                 2048 tokens in fp32 counted by ``core.hlo_analysis`` on
+                 ``meta`` and on the card on the kernel tier (16 flash
+                 launches, recorded and held to their plain version as
+                 phase 4 holds every call); flops and bytes must be equal;
+                 ``roofline.analyze``'s terms on ``H100_SXM_FP32`` beside the
+                 profiled busy ms of the same prefill (a measured
+                 ``roofline_fraction``) and the counted memory total beside
+                 ``max_memory_allocated``
 
 Each phase logs its wall time and the peak device memory it reached.  Phase
 2 logs the registers and spills of the flash-attention instances the paths
 use (``[ptxas]``, D = 40 to 256).  It
 prints a ``{"kernels": [...]}`` line (each kernel's launches and times
-summed over all paths' main runs, and the ``"<kernel> [train]"`` entries
-over phase 9's train runs), the card's name and power limit, and,
+summed over all paths' main runs, and the ``"<kernel> [train]"``,
+``[mesh]`` and ``[dryrun]`` entries over phases 9, 10 and 11b), the card's
+name and power limit, and,
 last, ``{"ok": true, "device": {...}}``; before them, the script's wall
 time from start to the result (``[total]``).  Per-call details go to
 ``build/chip_smoke/``.  Without a CUDA device it exits non-zero and prints
@@ -490,13 +515,18 @@ class Recorder:
         self.stage = None
 
     def wrap(self, name, fn):
+        from repro_torch.core.hlo_analysis import active_counter
+
         def recorded(*args, **kw):
-            key = (name, tuple(map(_sig, args)), tuple((k, _sig(v)) for k, v in sorted(kw.items())))
-            if key not in self.calls:
-                self.calls[key] = dict(name=name, args=[_keep(a) for a in args],
-                                       kw={k: _keep(v) for k, v in kw.items()},
-                                       counts=collections.Counter())
-            self.calls[key]["counts"][self.stage] += 1
+            counter = active_counter()  # a counted step (phase 11) does not count the copies
+            with counter.paused() if counter is not None else contextlib.nullcontext():
+                key = (name, tuple(map(_sig, args)),
+                       tuple((k, _sig(v)) for k, v in sorted(kw.items())))
+                if key not in self.calls:
+                    self.calls[key] = dict(name=name, args=[_keep(a) for a in args],
+                                           kw={k: _keep(v) for k, v in kw.items()},
+                                           counts=collections.Counter())
+                self.calls[key]["counts"][self.stage] += 1
             return fn(*args, **kw)
 
         return recorded
@@ -1274,7 +1304,7 @@ def generate_states(wl, model, tokens, device):
 # 2 sum in other orders, through 50 DDIM steps and the VAE.
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
 SERVE_WIDTH = 32  # the engine's first bucket: every prompt is padded to it
-SD_LAUNCHER_REQUESTS = 8
+SD_LAUNCHER_REQUESTS = 4
 # LLaMA served as the paper's workload: 2048-token prompts (one bucket) and
 # 64 new tokens; a backlog of 16 for the rate and the latency percentiles,
 # 4 of them (one batch) for the route, sampling and generate checks
@@ -1283,17 +1313,25 @@ LM_PROMPT, LM_NEW, LM_REQUESTS, LM_CHECKED = 2048, 64, 16, 4
 # 64 leaves the whole script room for the MoE and recurrent paths and the
 # train paths of phase 9)
 PARTI_DECODE_STEPS = 64
-# The dense LMs in fp32 on one card and their layers there (None: all);
-# glm4-9b's 40 identical layers are cut to 10 to fund the recurrent paths
-# and phase 9
-DENSE_LMS = {"olmo-1b": None, "stablelm-3b": None, "glm4-9b": 10}
+# Depth cuts.  Each model's layers repeat one block (or one pattern of
+# blocks), so a cut keeps every per-call shape and every operator; what it
+# saves is mostly host time (the seeded draws of the weights, the Python of
+# each layer), which varies with the host the card shares, and it
+# keeps the script well inside its time limit.  LLaMA2-7B and Parti:
+LLAMA_LAYERS = 8  # of 32
+PARTI_LAYERS = 8  # of 80
+VLM_LAYERS = 14  # qwen2-vl-2b's, of 28
+# The dense LMs in fp32 on one card and their layers there (None: all;
+# olmo-1b's 16 are phase 11b's full-depth count)
+DENSE_LMS = {"olmo-1b": None, "stablelm-3b": 8, "glm4-9b": 5}  # of 16, 32, 40
 DENSE_LM_NEW = 16  # new tokens of their main paths (LLaMA: 64)
-# The MoE LMs in fp32 and their layers on the card (None: all); qwen3's 48
-# identical MoE layers are cut to 12 (122 GB of fp32 weights)
-MOE_LMS = {"deepseek-moe-16b": None, "qwen3-moe-30b-a3b": 12}
-# The sub-quadratic LMs in fp32 at full depth, by their prompt length:
-# recurrentgemma's window of 2048 masks only past 2048 tokens
-RECURRENT_LMS = {"mamba2-780m": 2048, "recurrentgemma-9b": 3072}
+# The MoE LMs in fp32 and their layers on the card: deepseek's dense first
+# layer and 3 MoE layers; qwen3's 48 identical MoE layers are 122 GB in fp32
+MOE_LMS = {"deepseek-moe-16b": 4, "qwen3-moe-30b-a3b": 3}  # of 28, 48
+# The sub-quadratic LMs in fp32, by their prompt length and layers:
+# recurrentgemma's window of 2048 masks only past 2048 tokens, and 6 of
+# its 38 layers are two whole turns of its (RG-LRU, RG-LRU, local) pattern
+RECURRENT_LMS = {"mamba2-780m": (2048, 12), "recurrentgemma-9b": (3072, 6)}  # of 48, 38
 NEAR_TIE = 1e-5  # a probability gap the two tiers' routings may part on
 
 
@@ -1447,7 +1485,7 @@ def padded(wl, prompts) -> list:
 
 
 def serve_stable_diffusion(wl, model, rows) -> dict:
-    """The launcher in a subprocess (8 requests, cascade, poisson arrivals),
+    """The launcher in a subprocess (4 requests, cascade, poisson arrivals),
     then 4 of its prompts on the pod and cascade routes and through
     ``generate`` with the same rids, held to one another."""
     from repro_torch.launch.serve import draw_prompts
@@ -3118,6 +3156,174 @@ def run_mesh(*, smi: str, timed: dict | None = None, olmo_step1: float | None = 
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the compiled-program analyses (``[dryrun]`` lines)
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELL = ("olmo-1b", "train_4k")  # the hill-climb's olmo_train cell
+DRYRUN_TIMEOUT_S = 900
+
+
+class DryrunCLI:
+    """11a: ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL``,
+    single-pod: a 256-rank fake world with every tensor on ``meta`` (host
+    work only), 16 microbatches, depth-checked.  Started with the script in
+    a subprocess beside the card's phases (one host core, at a lower
+    priority); a watcher thread notes when it ends, :meth:`result` reads its
+    record, and it is killed at exit if it still runs."""
+
+    def __init__(self):
+        import atexit
+        import threading
+
+        self.out = OUT_DIR / "torch_dryrun.json"
+        self.out.unlink(missing_ok=True)
+        arch, shape = DRYRUN_CELL
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--single-pod-only", "--out", str(self.out)]
+        env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        self.log = open(OUT_DIR / "dryrun_cli.log", "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        # at a lower priority: the card's phases wait on the host's cores
+        os.setpriority(os.PRIO_PROCESS, self.proc.pid, 10)
+        self.t_end = None
+        self.watch = threading.Thread(target=self._wait, daemon=True)
+        self.watch.start()
+        atexit.register(self.close)
+
+    def _wait(self):
+        self.proc.wait()
+        self.t_end = time.perf_counter()
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+    def result(self) -> dict:
+        self.watch.join(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        if self.t_end is None:
+            raise AssertionError(f"the dry-run CLI did not end in {DRYRUN_TIMEOUT_S} s")
+        self.log.flush()
+        text = (OUT_DIR / "dryrun_cli.log").read_text()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the dry-run CLI exited {self.proc.returncode}: {text[-3000:]}")
+        (r,) = json.loads(self.out.read_text())
+        if r["status"] != "ok":
+            raise AssertionError(f"the dry-run cell is {r['status']}: {r.get('error')}")
+        corr, rf = r["depth_correction"], r["roofline"]
+        wall = self.t_end - self.t0
+        log(f"[dryrun] cli {r['arch']} x {r['shape']} x {r['mesh']} ({rf['n_chips']}-rank fake "
+            f"world on meta, {r['microbatches']} microbatches): {r['status']}, wall {wall:.1f} s "
+            f"(the cell's dispatch {r['compile_s']} s, beside the card's phases); "
+            f"{r['memory']['total_bytes'] / 2**30:.2f} GiB a rank, flops a rank "
+            f"{r['flops']:.4e}, collective {r['collective_wire_bytes'] / 2**30:.2f} GiB a rank "
+            f"(wire), dominant {rf['dominant']}, roofline_fraction {rf['roofline_fraction']:.4f} "
+            f"on {r['hw']}; useful ratio {rf['useful_ratio']:.4f}; depth fit over "
+            f"{corr['n_a']} and {corr['n_b']} layers to {corr['n_full']}: equal to the direct "
+            f"count {corr['matches_direct']}; collectives {r['collectives']}")
+        if r["microbatches"] != 16 or not corr["matches_direct"]:
+            raise AssertionError(f"the dry-run cell: {r['microbatches']} microbatches, depth fit "
+                                 f"{ {k: corr[k] for k in ('flops', 'bytes', 'coll')} } against "
+                                 f"the direct count {corr['direct']}")
+        return dict(wall_s=wall, record={k: v for k, v in r.items() if k != "trace"})
+
+
+def dryrun_check(wl, model, *, timed: dict | None = None) -> dict:
+    """11b, in the olmo-1b path on its model: the path's prefill shape (2 x
+    2048 tokens, fp32, full width) counted by ``core.hlo_analysis`` once on
+    ``meta`` (the model built there, no values) and once on the card on the
+    kernel tier, its 16 flash launches recorded and held to their plain
+    version (``check_kernels``).  The two counts' flops and bytes must be
+    equal: the card's launches are counted as their plain version.  Then
+    ``roofline.analyze`` of the count on ``H100_SXM_FP32`` beside the
+    profiled busy ms of the same prefill (a measured ``roofline_fraction``),
+    and the counted memory total beside the allocator's peak."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import hlo_analysis, roofline
+    from repro_torch.kernels import build
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.nn import param_defs
+
+    cfg, S = wl.cfg, wl.max_prompt_len
+    tokens = torch.randint(0, cfg.vocab, (2, S), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(SEED + 3))
+
+    def count(m, toks):
+        prefill = steps.make_prefill_step(m, cfg, impl="kernel")
+        leaves = {k: m.get_parameter(k) for k in param_defs(m)}
+        with torch.inference_mode():
+            return hlo_analysis.record_step(lambda params, batch: prefill(batch), leaves,
+                                            {"tokens": toks})[1]
+
+    t0 = time.perf_counter()
+    on_meta = count(TransformerLM(cfg), tokens.to("meta"))
+    meta_s = time.perf_counter() - t0
+    rec = Recorder()
+    rec.stage = "prefill"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.launches.clear()  # counts start at 0 just before the counted prefill
+    t0 = time.perf_counter()
+    with recording(rec):
+        on_card = count(model, tokens.cuda())
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(build.launches)  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"flash_attention": cfg.n_layers}:
+        raise AssertionError(f"[dryrun] the counted prefill launched {launches}, expected "
+                             f"{cfg.n_layers} flash attention")
+    rows = check_kernels(rec, {"prefill": 1}, {"prefill": 1}, timed)
+    del rec
+    prefill = steps.make_prefill_step(model, cfg, impl="kernel")
+    batch = {"tokens": tokens.cuda()}
+    with torch.inference_mode():
+        prof = profile_passes(lambda: prefill(batch))
+    mf = roofline.model_flops_for(cfg, ShapeSpec("prefill", "prefill", S, 2))
+    rep = roofline.analyze(arch=cfg.name, shape=f"prefill 2x{S}", mesh_name="1 card", n_chips=1,
+                           record=on_card, model_flops=mf, hw=H100_SXM_FP32)
+    mem = hlo_analysis.memory_summary(on_card)
+    measured = mf / (prof["busy_ms"] / 1e3) / H100_SXM_FP32.peak_flops
+    same = (on_meta.flops, on_meta.bytes_accessed) == (on_card.flops, on_card.bytes_accessed)
+    out = dict(flops=dict(meta=on_meta.flops, card=on_card.flops),
+               bytes=dict(meta=on_meta.bytes_accessed, card=on_card.bytes_accessed),
+               count_s=dict(meta=meta_s, card=card_s), model_flops=mf,
+               roofline=rep.to_dict(), hw=H100_SXM_FP32.name, busy_ms=prof["busy_ms"],
+               window_ms=prof["window_ms"], measured_roofline_fraction=measured,
+               memory=mem, memory_meta=hlo_analysis.memory_summary(on_meta),
+               peak_allocated=peak, resident_before=resident,
+               collectives=hlo_analysis.collective_stats(on_card).count_by_type,
+               rows=rows, launches=launches)
+    log(f"[dryrun] {cfg.name} prefill 2 x {S} fp32, counted (core.hlo_analysis): flops "
+        f"{on_meta.flops:.6e} on meta, {on_card.flops:.6e} on the card; bytes "
+        f"{on_meta.bytes_accessed:.6e} / {on_card.bytes_accessed:.6e}: equal {same} (counts "
+        f"{meta_s:.2f} s / {card_s:.2f} s); model flops {mf:.4e} (useful ratio "
+        f"{rep.useful_ratio:.4f}); launches {launches}")
+    log(f"[dryrun] {cfg.name} prefill roofline on {H100_SXM_FP32.name}: compute "
+        f"{rep.compute_s * 1e3:.2f} ms, memory {rep.memory_s * 1e3:.2f} ms, collective "
+        f"{rep.collective_s * 1e3:.2f} ms, dominant {rep.dominant}, modeled step "
+        f"{rep.step_time_s * 1e3:.2f} ms (roofline_fraction {rep.roofline_fraction:.4f}); "
+        f"profiled busy {prof['busy_ms']:.2f} ms (window {prof['window_ms']:.2f} ms): "
+        f"measured roofline_fraction {measured:.4f}")
+    log(f"[dryrun] {cfg.name} prefill memory: counted total {mem['total_bytes'] / 2**30:.3f} "
+        f"GiB (arguments {mem['argument_size_in_bytes'] / 2**30:.3f}, outputs "
+        f"{mem['output_size_in_bytes'] / 2**30:.3f}, temp {mem['temp_size_in_bytes'] / 2**30:.3f}:"
+        f" the plain attention's scores included) against max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB resident before)")
+    if not same:
+        raise AssertionError(f"[dryrun] counts differ, meta vs card: flops {out['flops']}, "
+                             f"bytes {out['bytes']}")
+    return out
+
+
 def olmo_step1(paths: dict) -> float | None:
     """Phase 9's olmo-1b step 1 loss (through ``launch/train.py``), where
     phase 9 ran."""
@@ -3155,6 +3361,8 @@ def main(only=()) -> int:
     from repro_torch.kernels import build
 
     OUT_DIR.mkdir(parents=True, exist_ok=True)
+    if "dryrun" in only:
+        only = (*only, "olmo-1b")  # phase 11b runs in the olmo-1b path
     torch.backends.cudnn.allow_tf32 = False  # plain and library sides in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -3172,6 +3380,9 @@ def main(only=()) -> int:
     log("[sass] " + ("cuobjdump not found: not checked" if mma is None else "; ".join(
         f"{fam}: {v['instances']} instances, each with >= {v['hmma_per_instance_min']} HMMA, "
         f"opcodes {v['opcodes']}" for fam, v in mma.items())))
+
+    # -- 11a. the dry-run CLI: host work only, run beside the card's phases --------
+    cli = DryrunCLI() if not only or "dryrun" in only else None
 
     # -- 3-7, per path ----------------------------------------------------------
     t_all = time.perf_counter()
@@ -3195,46 +3406,55 @@ def main(only=()) -> int:
                                 kernels=("conv2d", "flash_attention")),
         PHENAKI.name: lambda: path(PHENAKI, tag="main-phenaki", record_steps=1,
                                    kernels=("flash_attention", "temporal_flash_attention")),
-        LLAMA2_7B.name: lambda: path(LLAMA2_7B, tag="main-lm", record_steps=1,
+        LLAMA2_7B.name: lambda: path(dataclasses.replace(LLAMA2_7B, n_layers=LLAMA_LAYERS),
+                                     tag="main-lm", record_steps=1,
                                      kernels=("flash_attention",), serve_fn=serve_llama),
-        # bf16: 87.6 GB of fp32 weights do not fit the card's 80 GB; the
-        # first PARTI_DECODE_STEPS of its 1024 tokens (ms a token is the reading)
-        PARTI.name: lambda: path(with_dtype(PARTI, torch.bfloat16), tag="main-parti",
+        # bf16, as at full depth, where 87.6 GB of fp32 weights do not fit the
+        # card's 80 GB; the first PARTI_DECODE_STEPS of its 1024 tokens (ms a token is the reading)
+        PARTI.name: lambda: path(with_dtype(dataclasses.replace(PARTI, n_layers=PARTI_LAYERS),
+                                            torch.bfloat16), tag="main-parti",
                                  record_steps=1, kernels=("conv2d", "flash_attention"),
                                  decode_steps=PARTI_DECODE_STEPS),
     }
     # the dense assigned LMs in fp32, as LLaMA, with DENSE_LM_NEW new tokens
     # (qwen2-72b, 291 GB in fp32, waits for several cards)
+    # (olmo-1b with phase 11b on its model)
     for arch, layers in DENSE_LMS.items():
         cfg = get_config(arch)
-        runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
-            path(cfg, tag=f"main-{cfg.name}", record_steps=1, kernels=("flash_attention",),
-                 max_new=DENSE_LM_NEW))
+        extra = (("dryrun", functools.partial(dryrun_check, timed=timed))
+                 if arch == DRYRUN_CELL[0] and cli is not None else None)
+        runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers), \
+            extra=extra: path(cfg, tag=f"main-{cfg.name}", record_steps=1,
+                              kernels=("flash_attention",), max_new=DENSE_LM_NEW, extra=extra)
     # the MoE LMs in fp32, as the dense ones, cut to MOE_LMS's layers
     for arch, layers in MOE_LMS.items():
         cfg = get_config(arch)
         runs[arch] = lambda cfg=dataclasses.replace(cfg, n_layers=layers or cfg.n_layers): (
             path(cfg, tag=f"main-{cfg.name}", record_steps=1, kernels=("flash_attention",),
                  max_new=DENSE_LM_NEW))
-    # the sub-quadratic LMs in fp32 at full depth; mamba2 launches no hand kernel
-    for arch, prompt_len in RECURRENT_LMS.items():
-        runs[arch] = lambda arch=arch, prompt_len=prompt_len: path(
-            get_config(arch), tag=f"main-{arch}", record_steps=1,
+    # the sub-quadratic LMs in fp32, cut to RECURRENT_LMS's layers; mamba2
+    # launches no hand kernel
+    for arch, (prompt_len, layers) in RECURRENT_LMS.items():
+        runs[arch] = lambda arch=arch, prompt_len=prompt_len, layers=layers: path(
+            dataclasses.replace(get_config(arch), n_layers=layers), tag=f"main-{arch}",
+            record_steps=1,
             kernels=() if arch == "mamba2-780m" else ("flash_attention",),
             max_new=DENSE_LM_NEW, prompt_len=prompt_len)
     # the VLM as the dense LMs on token prompts, then its embedding path
     # ([mrope]); the enc-dec model through its own entry points
     runs["qwen2-vl-2b"] = lambda: path(
-        get_config("qwen2-vl-2b"), tag="main-qwen2-vl-2b", record_steps=1,
+        dataclasses.replace(get_config("qwen2-vl-2b"), n_layers=VLM_LAYERS),
+        tag="main-qwen2-vl-2b", record_steps=1,
         kernels=("flash_attention",), max_new=DENSE_LM_NEW, extra=("mrope", mrope_phase))
     runs["whisper-base"] = lambda: run_encdec_path(get_config("whisper-base"), smi=smi)
     # phase 9: training, full-width SD and olmo-1b, then the reduced restarts
     runs["train"] = lambda: run_train(smi=smi, timed=timed)
     # phase 10: the mesh, after phase 9 (whose olmo-1b step 1 it compares with)
     runs["mesh"] = lambda: run_mesh(smi=smi, timed=timed, olmo_step1=olmo_step1(paths))
-    unknown = set(only) - set(runs) - {"fleet"}
+    unknown = set(only) - set(runs) - {"fleet", "dryrun"}
     if unknown:
-        raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)} and fleet")
+        raise SystemExit(f"unknown paths {sorted(unknown)}; known: {sorted(runs)}, fleet and "
+                         f"dryrun")
     paths: dict = {}
     for name, run in runs.items():
         if not only or name in only:
@@ -3246,6 +3466,11 @@ def main(only=()) -> int:
         kernels += summarize({"train": trained}, suffix=" [train]")
     if meshed is not None:
         kernels += summarize({"mesh": meshed}, suffix=" [mesh]")
+    dryrun = None
+    if cli is not None:
+        with phase("dryrun", "cli"):
+            dryrun = dict(cli.result(), prefill=paths[DRYRUN_CELL[0]]["summary"].pop("dryrun"))
+        kernels += summarize({"dryrun": dryrun["prefill"]}, suffix=" [dryrun]")
     paths_s = time.perf_counter() - t_all
     log(f"[total] {len(paths)} paths" + ("" if trained is None else " and training")
         + ("" if meshed is None else " and the mesh") + f" in {paths_s:.1f} s")
@@ -3258,6 +3483,7 @@ def main(only=()) -> int:
                    paths={k: v["summary"] for k, v in paths.items()}, kernels=kernels,
                    train=None if trained is None else trained["summary"],
                    mesh=None if meshed is None else meshed["summary"],
+                   dryrun=dryrun,
                    characterize={k: v["summary"]["characterize"] for k, v in paths.items()},
                    fleet=fleet, wall_s=time.perf_counter() - T_START)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))

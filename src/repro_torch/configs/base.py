@@ -99,8 +99,37 @@ class LMConfig:
         return tuple(types)
 
     @property
+    def homogeneous(self) -> bool:
+        return len(set(self.block_types())) == 1
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if prefill cost is sub-quadratic in sequence length (SSM, or
+        a hybrid whose attention is local-window)."""
+        types = set(self.block_types())
+        if types <= {"mamba2", "rglru"}:
+            return True
+        if "dense" in types or "moe" in types:
+            return False
+        return types <= {"mamba2", "rglru", "local_attn"} and self.window is not None
+
+    @property
     def is_encdec(self) -> bool:
         return self.encoder is not None
+
+    def supports_shape(self, shape: "ShapeSpec") -> bool:
+        """False for a full-attention arch at a decode over 65536 positions
+        (``long_500k``: the dry-run skips it, as the reference's)."""
+        return not (shape.kind == "decode" and shape.seq_len > 65536 and not self.sub_quadratic)
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: routed top-k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_ff_expert
+        n_moe_layers = sum(1 for t in self.block_types() if t == "moe")
+        return int(self.param_count() - n_moe_layers * per_expert * (m.n_experts - m.top_k))
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding, blocks, head, and an

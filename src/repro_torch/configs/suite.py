@@ -209,3 +209,32 @@ def with_dtype(cfg, dtype):
         elif isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
             changes[f.name] = tuple(with_dtype(x, dtype) for x in v)
     return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+# the paper's eight-model suite, in the reference's order
+SUITE = [
+    "llama2-7b",
+    "imagen",
+    "stable-diffusion",
+    "muse",
+    "parti",
+    "prod-image",
+    "make-a-video",
+    "phenaki",
+]
+
+
+def reduced_suite_config(cfg):
+    """Tiny same-structure suite config for the CPU (the workload's own
+    reduction rules, ``GenerativeWorkload.reduced``)."""
+    from repro_torch.workload import workload_for
+
+    return workload_for(cfg).reduced()
+
+
+def build_suite_model(cfg):
+    """Config -> model instance, its parameters on ``meta`` (the workload
+    registry's ``build_model``)."""
+    from repro_torch.workload import workload_for
+
+    return workload_for(cfg).model

@@ -12,13 +12,17 @@ import time: the CPU tests import every module on a machine with no
 ``nvcc`` and no card.
 
 ``launches`` counts, per kernel, the wrapper calls that launched the CUDA
-kernel; plain-version calls on CPU tensors do not count.
+kernel; plain-version calls on CPU tensors do not count.  :func:`counted`
+marks a wrapper whose launches a step counter (``core.hlo_analysis``)
+counts as the wrapper's plain version, since no dispatch mode sees a
+``ctypes`` launch.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -140,6 +144,27 @@ def takes_plain(t: torch.Tensor) -> bool:
     CPU tests' numerics) or a ``meta`` tensor (shapes only, as the tracer's
     characterization runs: nothing is computed and nothing launched)."""
     return t.device.type in ("cpu", "meta")
+
+
+def counted(wrapper):
+    """Decorator of a kernel wrapper: under a ``core.hlo_analysis``
+    ``StepCounter`` a launch (a wrapper call on a CUDA tensor) is counted as
+    the same wrapper's call on ``meta`` tensors, its plain version, and the
+    ops inside the launch are not counted; otherwise the call is the
+    wrapper's own."""
+
+    @functools.wraps(wrapper)
+    def call(*args, **kwargs):
+        if torch._C._len_torch_dispatch_stack() and not takes_plain(
+                args[0] if args else next(iter(kwargs.values()))):
+            from repro_torch.core.hlo_analysis import active_counter
+
+            counter = active_counter()
+            if counter is not None:
+                return counter.count_launch(wrapper, args, kwargs)
+        return wrapper(*args, **kwargs)
+
+    return call
 
 
 def check_device(*tensors: torch.Tensor | None) -> torch.device:

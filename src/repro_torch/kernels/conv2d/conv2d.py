@@ -89,6 +89,7 @@ def _f32(t: torch.Tensor | None, shape: tuple) -> torch.Tensor | None:
     return t.to(torch.float32).contiguous()
 
 
+@build.counted
 def conv2d(
     x: torch.Tensor,  # (B, H, W, C_in)
     w: torch.Tensor,  # (K, K, C_in, C_out)
@@ -158,6 +159,7 @@ def conv2d(
     return (out, stats) if emit_stats else out
 
 
+@build.counted
 def temporal_conv1d(
     x: torch.Tensor,  # (B, F, N, C): conv over the frame axis F
     w: torch.Tensor,  # (K, C, C_out), K odd

@@ -75,6 +75,7 @@ def temporal_plan(B: int, F: int, HW: int, H: int, D: int, elem_bytes: int) -> T
                         blocks, -(-items // (blocks * warps)))
 
 
+@build.counted
 def flash_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Skv, KVH, D)
@@ -116,6 +117,7 @@ def flash_attention(
     return out
 
 
+@build.counted
 def temporal_flash_attention(
     q: torch.Tensor,  # (B, F, HW, H, D)
     k: torch.Tensor,

@@ -125,6 +125,12 @@ def _attention_on_mesh(q, k, v, *, impl: str, **kw):
     B, Sq, H, D = q.shape
     KVH = k.shape[2]
     group = H // KVH
+    if KVH % shards.shard_count(q, 2):
+        # heads sharded wider than the KV heads: DTensor carries no shard
+        # from the heads into (KVH, group), so they are gathered first
+        heads = shards.sharded_dims(q, 2)
+        q = shards.as_placed(q, mesh, tuple(
+            Replicate() if i in heads else p for i, p in enumerate(q.placements)))
     out_pl = tuple(shards.pinned((B, Sq, KVH, group, D), ("batch", None, None, "model", None),
                                  mesh))
     q5 = shards.as_placed(q.reshape(B, Sq, KVH, group, D), mesh, out_pl)
@@ -162,6 +168,9 @@ def decode_attention(
     (``[0, kv_len)`` without a window): a masked key's weight is exactly 0 in
     fp32 (exp(-1e30 - max)), so the function is unchanged and the cache read
     is the valid part only (half of Parti's, on average)."""
+    if shards.on_mesh(q, k_cache, v_cache):
+        return _decode_attention_on_mesh(q, k_cache, v_cache, kv_len=kv_len, scale=scale,
+                                         window=window)
     B, _, H, D = q.shape
     one_len = isinstance(kv_len, int)
     if one_len:
@@ -185,6 +194,33 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.stack([torch.matmul(p[b], vf[b].permute(1, 0, 2)) for b in range(B)])
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_attention_on_mesh(q, k_cache, v_cache, **kw):
+    """``decode_attention`` on DTensors, through the kernels' boundary: each
+    rank attends its own requests (the batch over the batch axes) in its
+    own heads (over ``model``, where both head counts divide it: a rank's
+    query heads then group onto its own KV heads) to their whole cache,
+    gathered over the sequence, on local tensors.  DTensor runs no
+    flash-decoding over a sequence-sharded cache either, and its view rules
+    cannot fold a sharded head axis into a batched product's batch (torch
+    2.11); indexing a request of the sharded batch, as the per-request loop
+    does, would gather the batch whole on every rank."""
+    from repro_torch.parallel.sharding import mesh_shape
+
+    mesh = shards.mesh_of(q, k_cache, v_cache)
+    m = mesh_shape(mesh).get("model", 1)
+    heads = "model" if q.shape[2] % m == 0 and k_cache.shape[2] % m == 0 else None
+    q_pl = tuple(shards.pinned(tuple(q.shape), ("batch", None, heads, None), mesh))
+    kv_pl = tuple(shards.pinned(tuple(k_cache.shape), ("batch", None, heads, None), mesh))
+    ql = shards.local(shards.as_placed(q, mesh, q_pl), q_pl)
+    kl, vl = (shards.local(shards.as_placed(t, mesh, kv_pl), q_pl) for t in (k_cache, v_cache))
+    kv_len = kw.pop("kv_len")
+    if shards.on_mesh(kv_len):  # one length a request: the rank's own requests'
+        pl = tuple(shards.pinned(tuple(kv_len.shape), ("batch",), mesh))
+        kv_len = shards.local(shards.as_placed(kv_len, mesh, pl), q_pl)
+    out = decode_attention(ql, kl, vl, kv_len=kv_len, **kw)
+    return shards.wrap(out, mesh, q_pl, tuple(q.shape))
 
 
 def temporal_attention(

@@ -82,6 +82,7 @@ def plan(B: int, N: int, C: int, groups: int, elem_bytes: int, aligned: bool = T
                 scratch + (cache if cached else 0), B * chunks * cluster)
 
 
+@build.counted
 def groupnorm_silu(
     x: torch.Tensor,  # (B, N, C)
     scale: torch.Tensor,  # (C,)

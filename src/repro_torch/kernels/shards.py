@@ -84,3 +84,11 @@ def sharded_dims(x, dim: int) -> tuple:
     """The mesh dims on which DTensor ``x`` is sharded along tensor ``dim``."""
     dim = dim % x.ndim
     return tuple(i for i, p in enumerate(x.placements) if p.is_shard(dim))
+
+
+def shard_count(x, dim: int) -> int:
+    """Into how many shards DTensor ``x``'s ``dim`` is split."""
+    n = 1
+    for i in sharded_dims(x, dim):
+        n *= int(x.device_mesh.shape[i])
+    return n

@@ -9,12 +9,25 @@ the card, gloo on the CPU; a failed init raises, with no fallback.
 :func:`make_debug_mesh` and :func:`make_production_mesh` build a torch
 ``DeviceMesh`` with the reference's axis names, on ``cuda`` unless the
 caller asks for the CPU, and raise where the world is not the mesh's size
-(the reference's meshes need their devices).  The dry-run's fake-device
-setup (``ensure_host_device_count``) has no counterpart yet.
+(the reference's meshes need their devices).
+
+The dry-run's devices (``launch/dryrun.py``) are a world of fake ranks:
+:func:`fake_world` joins a process group of ``n`` ranks on torch's
+``"fake"`` backend as rank 0 (a ``FakeStore``; no rank but this one exists
+and no collective moves data).  The production meshes are then built on
+it, on the first 256 or 512 ranks, with device type ``cuda`` so that
+DTensor picks the card's collectives (all-to-all where a CPU mesh would
+all-gather); their local tensors stay on ``meta``.  It is the counterpart
+of XLA's fake host devices, and :func:`ensure_host_device_count` keeps the
+reference's contract on the same ``XLA_FLAGS`` flag, so one environment
+sizes both packages' dry-runs.  A process has one default group: a fake
+world lives in its own process (the CLI, a test's subprocess), never beside
+an NCCL or gloo world.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import re
@@ -24,6 +37,46 @@ import torch
 
 # A collective that waits longer than this fails its rank.
 DEFAULT_TIMEOUT_S = 600.0
+
+_COUNT_RE = re.compile(r"--xla_force_host_platform_device_count=(\d+)")
+
+
+def ensure_host_device_count(n: int = 512, *, respect_env: bool = True) -> int:
+    """Set ``--xla_force_host_platform_device_count=n`` in ``XLA_FLAGS``
+    and return the count in effect: the size of the dry-run's fake world.
+
+    With ``respect_env`` (the default) an existing count in ``XLA_FLAGS``
+    wins, so ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` sizes
+    both packages' dry-runs; ``respect_env=False`` overrides it."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    m = _COUNT_RE.search(flags)
+    if m is not None:
+        if respect_env:
+            return int(m.group(1))
+        os.environ["XLA_FLAGS"] = _COUNT_RE.sub(f"--xla_force_host_platform_device_count={n}",
+                                                flags)
+        return n
+    extra = f"--xla_force_host_platform_device_count={n}"
+    os.environ["XLA_FLAGS"] = f"{flags} {extra}".strip()
+    return n
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A process group of ``n`` ranks on the ``"fake"`` backend, this
+    process rank 0, for the duration of the block (destroyed on exit).
+    Raises where the process already holds a default group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("this process already holds a process group; a fake world needs a "
+                           "process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield n
+    finally:
+        dist.destroy_process_group()
 
 
 def backend_for(device) -> str:
@@ -80,6 +133,12 @@ def _mesh(shape: tuple, names: tuple, device):
     # the world this process would join, known before it joins one
     world = (dist.get_world_size() if dist.is_initialized()
              else int(os.environ.get("WORLD_SIZE", 1)))
+    if dist.is_initialized() and world > need and dist.get_backend() == "fake":
+        # the first ranks of a larger fake world
+        from torch.distributed.device_mesh import DeviceMesh
+
+        return DeviceMesh(torch.device(device).type, torch.arange(need).reshape(shape),
+                          mesh_dim_names=names)
     if world != need:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh {names} needs a world of {need} "
                          f"ranks; this one has {world}")

@@ -85,30 +85,34 @@ def input_specs(cfg: LMConfig, shape: ShapeSpec) -> dict:
     return batch
 
 
-def make_prefill_step(model: TransformerLM, cfg: LMConfig, *, impl: str = "auto",
+def make_prefill_step(model: TransformerLM, cfg: LMConfig, mesh=None, *, impl: str = "auto",
                       max_len: int | None = None):
     """``prefill_step(batch) -> (logits, caches, context)``: the model's
     prefill on ``batch`` (``input_specs``' prefill names), its caches padded
     to ``max_len`` positions for the decode steps that follow, and the
-    context an enc-dec model's serve steps take (None otherwise)."""
+    context an enc-dec model's serve steps take (None otherwise).  With a
+    ``mesh`` (DTensor leaves and batch) the step runs in ``mesh_scope``."""
     del cfg  # the model holds its config
 
     def prefill_step(batch: dict):
-        return model.prefill(batch.get("tokens"), embeds=batch.get("embeds"),
-                             enc_embeds=batch.get("enc_embeds"),
-                             mrope_positions=batch.get("mrope_positions"), impl=impl,
-                             max_len=max_len)
+        with mesh_scope(mesh):
+            return model.prefill(batch.get("tokens"), embeds=batch.get("embeds"),
+                                 enc_embeds=batch.get("enc_embeds"),
+                                 mrope_positions=batch.get("mrope_positions"), impl=impl,
+                                 max_len=max_len)
 
     return prefill_step
 
 
-def make_serve_step(model: TransformerLM, cfg: LMConfig, *, impl: str = "auto"):
+def make_serve_step(model: TransformerLM, cfg: LMConfig, mesh=None, *, impl: str = "auto"):
     """``serve_step(token, caches, cur_len, context=None) -> (logits,
-    caches)``: one decode step, the caches written in place."""
+    caches)``: one decode step, the caches written in place (in
+    ``mesh_scope`` with a ``mesh``)."""
     del cfg
 
     def serve_step(token, caches, cur_len: int, context=None):
-        return model.decode_step(token, caches, cur_len, context=context, impl=impl)
+        with mesh_scope(mesh):
+            return model.decode_step(token, caches, cur_len, context=context, impl=impl)
 
     return serve_step
 

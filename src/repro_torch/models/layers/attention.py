@@ -40,13 +40,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import tracer
+from repro_torch.kernels import shards
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.kernels.tiers import event_impl
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.basic import Dense
 from repro_torch.models.layers.norms import RMSNorm
 from repro_torch.nn import Module
-from repro_torch.parallel.sharding import constrain, place
+from repro_torch.parallel.sharding import constrain, is_dtensor, place
 
 # The TP width the K/V projections' logical axis is chosen for (the
 # reference's ``Attention.TP_WIDTH_HINT``).
@@ -115,6 +116,10 @@ class Attention(Module):
             self.k_norm = RMSNorm(head_dim, dtype=dtype)
 
     def _heads(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        if is_dtensor(t) and n % shards.shard_count(t, -1):
+            # a projection sharded over more ranks than it has heads: DTensor
+            # carries no shard into the head axis, so it is gathered first
+            t = constrain(t, ("batch", None, None))
         return t.reshape(t.shape[0], t.shape[1], n, self.head_dim)
 
     def _rope(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:

@@ -8,6 +8,7 @@ import math
 import torch
 
 from repro_torch.core import tracer
+from repro_torch.kernels import shards
 from repro_torch.nn import Module, normal_init, scaled_init, zeros_init
 from repro_torch.parallel.sharding import constrain, current_mesh, current_rules
 
@@ -56,12 +57,32 @@ class Embedding(Module):
         self.param("table", (vocab, dim), normal_init(0.02), dtype, axes=("vocab", "embed"))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        out = self.table[ids]
+        out = self._lookup_on_mesh(ids) if shards.on_mesh(self.table, ids) else self.table[ids]
         if tracer.active():
             tracer.record("embed", self.name, flops=0.0,
                           bytes_hbm=tracer.nbytes((out.shape, out.dtype))
                           + tracer.numel(ids.shape) * 4)
         return out
+
+    def _lookup_on_mesh(self, ids) -> torch.Tensor:
+        """The lookup on DTensors, through the kernels' boundary: the table
+        gathered whole (every rank looks up any row), each rank's own ids
+        (batch-sharded) looked up locally, the rows batch-sharded.  DTensor
+        takes the same gather; done locally, the backward's ``index_put``
+        runs on plain tensors (DTensor's rule for it fails on these
+        placements in torch 2.11), the table's gradient a partial sum over
+        the batch axes."""
+        from torch.distributed.tensor import Replicate
+
+        mesh = shards.mesh_of(self.table, ids)
+        shape = (*ids.shape, self.table.shape[1])
+        out_pl = tuple(shards.pinned(shape, ("batch",) + (None,) * ids.ndim, mesh))
+        ids_pl = tuple(shards.pinned(tuple(ids.shape), ("batch",) + (None,) * (ids.ndim - 1),
+                                     mesh))
+        table = shards.as_placed(self.table, mesh, (Replicate(),) * mesh.ndim)
+        rows = shards.local(table, out_pl)[shards.local(shards.as_placed(ids, mesh, ids_pl),
+                                                        out_pl)]
+        return shards.wrap(rows, mesh, out_pl, shape)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Logits through the transposed table (the tied head), in ``x``'s

@@ -31,7 +31,12 @@ class MLP(Module):
             self.wg = Dense(d_model, d_ff, use_bias, dtype, name="wg", axes=("embed", "mlp"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the hidden activation pinned batch-sharded x TP-sharded, as the reference
+        # the input pinned replicated over ``model`` (after a row-parallel
+        # product DTensor would carry its partial sums into wi / wg, which
+        # would then run on the whole gathered weight on every model rank),
+        # the hidden activation batch-sharded x TP-sharded, as the reference
+        if x.ndim == 3:
+            x = constrain(x, ("batch", None, None))
         spec = ("batch", None, "model") if x.ndim == 3 else (None,) * x.ndim
         h = constrain(self.wi(x), spec)
         h = self.act(constrain(self.wg(x), spec)) * h if self.gated else self.act(h)

@@ -429,6 +429,11 @@ class TransformerLM(Module):
         x, positions = self._inputs(tokens, embeds, mrope_positions)
         B, S = x.shape[:2]
         context = self.encode(enc_embeds, impl=impl) if self.cfg.is_encdec else None
+        # the residual stream pinned as ``forward_train`` pins it: on a mesh
+        # DTensor would otherwise carry a row-parallel output's partial sums
+        # into the next column-parallel product, which then runs on the
+        # whole gathered weight on every model rank
+        x = constrain(x, ("batch", None, None))
         caches = []
         for i, group in enumerate(self.layers()):
             t = group[0].block_type
@@ -442,6 +447,7 @@ class TransformerLM(Module):
                 with tracer.scope(self._scope(i, j)):
                     x, st = layer(x, positions=positions, context=context, impl=impl,
                                   return_state=True)
+                x = constrain(x, ("batch", None, None))
                 st = st[key]
                 if kv is not None:  # written into the padded cache at once
                     kv.k[j, :, :min(S, cap)] = st.k[:, :cap]
@@ -479,6 +485,7 @@ class TransformerLM(Module):
                 raise ValueError(f"{c.name}: an enc-dec decode step needs the context")
             pos = torch.full((x.shape[0], 1), cur_len, dtype=torch.int32, device=x.device)
             x = x + sinusoidal_embedding(pos, c.d_model).to(x.dtype)
+        x = constrain(x, ("batch", None, None))  # as ``prefill`` pins it
         for i, (group, cache) in enumerate(zip(self.layers(), caches)):
             (key, stacked), = cache.items()
             for j, layer in enumerate(group):
@@ -489,6 +496,7 @@ class TransformerLM(Module):
                 else:
                     with tracer.scope(self._scope(i, j)):
                         x, st = layer.decode(x, st, cur_len)
+                x = constrain(x, ("batch", None, None))
                 if key != "attn":  # a recurrent state: its new value into the slice
                     for a, new in zip(stacked, st[key]):
                         a[j].copy_(new)

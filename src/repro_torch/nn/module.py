@@ -154,13 +154,19 @@ def layer_views(module: torch.nn.Module, n: int) -> list:
     """The ``n`` layers of a module built by :func:`stack_params`: shallow
     copies of its module tree whose parameters are plain attributes holding
     views of slice ``j`` (no copy; nothing registered, so the views add no
-    ``state_dict`` keys)."""
+    ``state_dict`` keys).  Each leaf is split by one ``unbind``, whose
+    backward stacks the layers' gradients once (a view a layer, ``p[j]``,
+    would write a zero-filled whole stack for each layer's gradient: bytes
+    quadratic in the depth)."""
+    slices: dict = {}
 
     def view(mod, j):
+        if id(mod) not in slices:
+            slices[id(mod)] = {name: p.unbind(0) for name, p in mod._parameters.items()}
         out = copy.copy(mod)
         out.__dict__["_parameters"] = {}
-        for name, p in mod._parameters.items():
-            out.__dict__[name] = p[j]
+        for name, parts in slices[id(mod)].items():
+            out.__dict__[name] = parts[j]
         out.__dict__["_modules"] = {k: view(c, j) for k, c in mod._modules.items()}
         return out
 
@@ -195,6 +201,14 @@ def param_defs(module: torch.nn.Module) -> dict[str, ParamDef]:
         for name, d in getattr(mod, "param_defs", {}).items():
             out[f"{prefix}.{name}" if prefix else name] = d
     return out
+
+
+def count_params(params) -> int:
+    """Elements over every declared leaf of a module (its shapes: a module
+    on ``meta`` counts), or over the tensors of a ``{key: tensor}`` dict."""
+    if isinstance(params, torch.nn.Module):
+        return sum(math.prod(d.shape) for d in param_defs(params).values())
+    return sum(t.numel() for t in params.values())
 
 
 def specs_of(module: torch.nn.Module) -> dict[str, tuple]:

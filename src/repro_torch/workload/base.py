@@ -150,6 +150,9 @@ class CostDescriptor:
         if self.route not in WORKLOAD_ROUTES:
             raise ValueError(f"unknown workload route {self.route!r} for {self.arch!r}")
 
+    def total_steps(self) -> int:
+        return sum(s.steps for s in self.stages)
+
     def iterative_steps(self) -> int:
         return max((s.steps for s in self.stages), default=1)
 

@@ -1196,3 +1196,48 @@ def test_train_launcher_runs_reduced_on_the_card(h100, tmp_path):
     assert next(model.parameters()).device.type == "cuda"
     assert len(history) == 3 and all(np.isfinite(history))
     assert build.launches["flash_attention"] == 3 * model.cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The step counter (core.hlo_analysis): a launch counts as its plain version
+# ---------------------------------------------------------------------------
+
+
+def _counted_prefill(model, cfg, tokens):
+    from repro_torch.core import hlo_analysis
+    from repro_torch.launch import steps
+    from repro_torch.nn import param_defs
+
+    prefill = steps.make_prefill_step(model, cfg, impl="kernel")
+    leaves = {k: model.get_parameter(k) for k in param_defs(model)}
+    with torch.inference_mode():
+        return hlo_analysis.record_step(lambda params, batch: prefill(batch), leaves,
+                                        {"tokens": tokens})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "glm4-9b"])
+def test_step_counter_counts_a_prefill_alike_on_meta_and_on_the_card(h100, arch):
+    """A reduced LM's prefill on the kernel tier: on the card each layer
+    launches the flash kernel, counted as its plain version on ``meta``, so
+    the flops, bytes and op histogram equal the ``meta`` count's exactly."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import hlo_analysis
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.nn import init_params, materialize
+
+    cfg = reduced(get_config(arch))
+    tokens = torch.randint(0, cfg.vocab, (2, 96), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(0))
+    card = materialize(TransformerLM(cfg), init_params(TransformerLM(cfg), 0), "cuda")
+    _, on_meta = _counted_prefill(TransformerLM(cfg), cfg, tokens.to("meta"))
+    build.launches.clear()
+    (logits, _, _), on_card = _counted_prefill(card, cfg, tokens.cuda())
+    torch.cuda.synchronize()
+    assert build.launches["flash_attention"] == cfg.n_layers
+    assert torch.isfinite(logits).all()
+    assert on_card.flops == on_meta.flops > 0
+    assert on_card.bytes_accessed == on_meta.bytes_accessed > 0
+    assert on_card.ops == on_meta.ops
+    assert (hlo_analysis.memory_summary(on_card)["argument_size_in_bytes"]
+            == hlo_analysis.memory_summary(on_meta)["argument_size_in_bytes"])

@@ -14,6 +14,7 @@ other (``groupnorm_silu.py:73`` vs ``groupnorm_silu/ref.py:26``).
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +176,64 @@ def test_seeded_init_is_per_leaf_and_deterministic():
     assert abs(std * (3 * 3 * 64) ** 0.5 - 1.0) < 0.05
     materialize(mod, a, "cpu")
     assert torch.equal(mod.conv1.kernel, a["conv1.kernel"])
+
+
+# ---------------------------------------------------------------------------
+# The suite registry's helpers and parameter counts
+# ---------------------------------------------------------------------------
+
+
+def _fields(cfg):
+    """A config tree's fields, dtypes by name (jnp and torch dtypes differ as
+    objects)."""
+    if dataclasses.is_dataclass(cfg) and not isinstance(cfg, type):
+        return {f.name: _fields(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)
+                if not isinstance(getattr(cfg, f.name), types.FunctionType)}
+    if isinstance(cfg, (list, tuple)):
+        return [_fields(x) for x in cfg]
+    return str(cfg).split(".")[-1].strip("'>") if "float" in str(cfg) else cfg
+
+
+def test_suite_and_its_reduced_configs_match_the_reference():
+    from repro.configs import get_config as j_get_config
+    from repro.configs.suite import SUITE as J_SUITE
+    from repro.configs.suite import reduced_suite_config as j_reduced
+    from repro_torch.configs import get_config
+    from repro_torch.configs.suite import SUITE, reduced_suite_config
+
+    assert SUITE == J_SUITE
+    for arch in SUITE:
+        assert _fields(reduced_suite_config(get_config(arch))) == _fields(
+            j_reduced(j_get_config(arch))), arch
+
+
+def test_build_suite_model_and_count_params_match_the_reference():
+    """Every reduced suite model's parameter count, the port's on ``meta``
+    against the reference's abstract init."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs.suite import build_suite_model as j_build
+    from repro.configs.suite import reduced_suite_config as j_reduced
+    from repro.nn.module import count_params as j_count
+    from repro_torch.configs import get_config
+    from repro_torch.configs.suite import SUITE, build_suite_model, reduced_suite_config
+    from repro_torch.nn import count_params
+
+    for arch in SUITE:
+        model = build_suite_model(reduced_suite_config(get_config(arch)))
+        j_params = jax.eval_shape(j_build(j_reduced(j_get_config(arch))).init,
+                                  jax.random.PRNGKey(0))
+        assert count_params(model) == j_count(j_params), arch
+        assert count_params(dict(model.named_parameters())) == count_params(model), arch
+
+
+def test_cost_descriptor_total_steps_matches_the_reference():
+    from repro.configs import get_config as j_get_config
+    from repro.workload import workload_for as j_workload_for
+    from repro_torch.configs import get_config
+    from repro_torch.configs.suite import SUITE
+    from repro_torch.workload import workload_for
+
+    for arch in SUITE:
+        t = workload_for(get_config(arch)).cost_descriptor()
+        j = j_workload_for(j_get_config(arch)).cost_descriptor()
+        assert t.total_steps() == j.total_steps() > 0, arch
