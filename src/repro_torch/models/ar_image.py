@@ -94,7 +94,7 @@ def maskgit_step(tokens: torch.Tensor, logits: torch.Tensor, i: int, steps: int,
     tied with the n-th best is unmasked, as in the reference (a top-k would
     take exactly n)."""
     S = tokens.shape[1]
-    pred = logits.argmax(-1)  # the first maximum, as jnp.argmax
+    pred = logits.argmax(2)  # the first maximum, as jnp.argmax (the vocab dim by index)
     conf = torch.log_softmax(logits, dim=-1).amax(-1)
     still = tokens == mask_token
     conf = conf.masked_fill(~still, -math.inf)
@@ -117,10 +117,11 @@ def parallel_decode(backbone: Callable, ctx: torch.Tensor, seq_len: int, steps: 
         t0 = len(tracer.innermost().events)
         logits = backbone(tokens, ctx)
         tracer.scale_since(t0, steps)
-        return logits.argmax(-1)
+        return logits.argmax(2)
     for i in range(steps):
         tokens = maskgit_step(tokens, backbone(tokens, ctx), i, steps, mask_token)
-    pred = backbone(tokens, ctx).argmax(-1)
+    # the vocab dim by its index, as ``workload/lm.py::_next_token`` takes it
+    pred = backbone(tokens, ctx).argmax(2)
     return torch.where(tokens == mask_token, pred, tokens)
 
 
@@ -275,5 +276,6 @@ class ARImageModel(Module):
             steps = 1
         for t in range(S if steps is None else steps):
             prev = tokens[:, max(t - 1, 0): max(t - 1, 0) + 1]  # column 0 is still BOS 0 at t = 0
-            tokens[:, t] = self.ar_step(prev, t, caches, cross).argmax(-1)  # the first maximum
+            # the first maximum; the vocab dim by its index, as in ``parallel_decode``
+            tokens[:, t] = self.ar_step(prev, t, caches, cross).argmax(1)
         return tokens

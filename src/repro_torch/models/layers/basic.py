@@ -10,7 +10,8 @@ import torch
 from repro_torch.core import tracer
 from repro_torch.kernels import shards
 from repro_torch.nn import Module, normal_init, scaled_init, zeros_init
-from repro_torch.parallel.sharding import constrain, current_mesh, current_rules
+from repro_torch.parallel.sharding import (constrain, current_mesh, current_rules,
+                                            reduce_partial)
 
 
 class Dense(Module):
@@ -38,7 +39,7 @@ class Dense(Module):
             w = constrain(w, tuple(use_spec))
         y = torch.matmul(x, w)
         if self.use_bias:
-            y = y + self.bias.to(x.dtype)
+            y = reduce_partial(y) + self.bias.to(x.dtype)
         if tracer.active():
             tracer.record(
                 "linear", self.name,

@@ -34,6 +34,7 @@ from repro_torch.parallel.sharding import (
     _AMBIENT_MESH,
     batch_sharding_for,
     distribute,
+    install_dtensor_rules,
     is_dtensor,
 )
 
@@ -52,6 +53,7 @@ def mesh_scope(mesh):
         return
     from torch.distributed.tensor.experimental import implicit_replication
 
+    install_dtensor_rules()
     token = _AMBIENT_MESH.set(mesh)
     try:
         with implicit_replication():

@@ -391,6 +391,20 @@ def is_dtensor(x) -> bool:
     return isinstance(x, _DTENSOR[0])
 
 
+def reduce_partial(x):
+    """A DTensor's partial sums reduced (its ``Partial`` mesh dims made
+    ``Replicate``); anything else as it is.  A row-parallel product's output
+    meets its bias this way: DTensor cannot make a sharded bias partial
+    (torch 2.11), or reduce-scatters the sums onto whichever dim its costs
+    pick, a batch the mesh axis does not divide among them (2.13)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                               for p in x.placements))
+
+
 def whole(x):
     """A DTensor's full value on every rank (a plain tensor as it is): the
     host reads of a stage's control values (cache position, budget)."""
@@ -430,6 +444,192 @@ def concat_unsharded(xs, axis: int = -1):
     spec = tuple("batch" if (i == 0 and ax != 0) else None for i in range(nd))
     out = torch.cat([constrain(x, spec) for x in xs], dim=axis)
     return constrain(out, spec)
+
+
+# ---------------------------------------------------------------------------
+# Rules DTensor lacks
+# ---------------------------------------------------------------------------
+
+_RULES_INSTALLED: list = []
+
+
+def install_dtensor_rules() -> None:
+    """Register, once a process, the sharding rules the mesh path needs and
+    DTensor does not give (``mesh_scope`` calls this):
+
+      * a view that cannot carry a shard evenly (96 tokens split back into
+        3 x 32 over a data axis of 2) takes the offending mesh dims
+        ``Replicate`` first, the layout :func:`activation_spec` gives a dim
+        its axes do not divide, where DTensor's strict view rule raises.
+        XLA's partitioner reshards the reference's reshapes the same way.  A
+        view DTensor can carry keeps its placements.
+      * ``softplus``'s backward (the SSM's and RG-LRU's gates) is pointwise:
+        the gradient follows ``grad_output``'s and the input's placements.
+      * where DTensor has no rule, or no rule per mesh dim (torch 2.11):
+        ``F.pad`` (the causal depthwise conv), ``flip`` (``cumsum``'s
+        backward in the SSD scan) and ``roll`` (the ring-buffer cache) keep
+        the shard of every dim they do not move, where 2.11 has none or a
+        placeholder naming one mesh dim only; in-place ``index_put_`` (the
+        MoE's dispatch) takes its out-of-place twin's rule; ``add`` (the
+        backward's gradient sums) never asks to make a shard partial, which
+        2.11's redistribution cannot do."""
+    if _RULES_INSTALLED:
+        return
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._op_schema import RuntimeSchemaInfo
+    from torch.distributed.tensor.experimental import register_sharding
+
+    aten = torch.ops.aten
+    prop = DTensor._op_dispatcher.sharding_propagator
+    per_dim = getattr(prop, "op_single_dim_strategy_funcs", {})
+    for op in (aten.view.default, aten._unsafe_view.default):
+        prop.register_op_strategy(op, _uneven_view_strategy(prop.op_strategy_funcs[op]),
+                                  prop.op_to_schema_info.get(op))
+
+    def padded(schema):
+        pad, ndim = schema.args_schema[1], len(schema.args_schema[0].shape)
+        return {ndim - 1 - i // 2 for i in range(0, len(pad), 2) if pad[i] or pad[i + 1]}
+
+    def rolled(schema):
+        dims = schema.args_schema[2] if len(schema.args_schema) > 2 else []
+        return set(dims) if dims else None  # no dims: a roll of the flattened tensor
+
+    def zero_pad(schema):
+        return len(schema.args_schema) < 3 or schema.args_schema[2] == 0
+
+    moving = {aten.constant_pad_nd.default: (padded, zero_pad),
+              aten.flip.default: (lambda schema: set(schema.args_schema[1]), None),
+              aten.roll.default: (rolled, None)}
+    for op, (moved, linear) in moving.items():
+        if op not in per_dim:
+            prop.register_op_strategy(op, _unmoved_dims_strategy(moved, linear),
+                                      RuntimeSchemaInfo(1))
+    if aten.add.Tensor not in per_dim:
+        prop.register_op_strategy(aten.add.Tensor,
+                                  _no_shard_to_partial(prop.op_strategy_funcs[aten.add.Tensor]),
+                                  prop.op_to_schema_info.get(aten.add.Tensor))
+    if (aten.index_put_.default not in per_dim
+            and aten.index_put_.default not in prop.op_strategy_funcs
+            and aten.index_put.default in prop.op_strategy_funcs):
+        prop.register_op_strategy(aten.index_put_.default,
+                                  prop.op_strategy_funcs[aten.index_put.default],
+                                  prop.op_to_schema_info.get(aten.index_put.default))
+
+    @register_sharding(aten.softplus_backward.default)
+    def _softplus_backward(grad_output, x, beta, threshold):
+        # one mesh dim's choices, (output, inputs) alike: replicated, the
+        # same dim sharded, or a partial gradient (linear in grad_output)
+        del beta, threshold
+        out = [([Replicate()], [Replicate(), Replicate(), None, None]),
+               ([Partial()], [Partial(), Replicate(), None, None])]
+        out += [([Shard(d)], [Shard(d), Shard(d), None, None]) for d in range(x.ndim)]
+        return out
+
+    _RULES_INSTALLED.append(True)
+
+
+def _unmoved_dims_strategy(moved, linear=None):
+    """The rule of an op that moves data along some dims of its one tensor
+    input (``moved(schema)``, None: all of them): each mesh dim replicated,
+    or sharded on a dim it does not move, or (where ``linear(schema)``, by
+    default always) partial."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._ops.utils import expand_to_full_mesh_op_strategy
+
+    def strategy(op_schema):
+        x = op_schema.args_schema[0]
+        ndim = len(x.shape)
+        dims = moved(op_schema)
+        dims = set(range(ndim)) if dims is None else {d % ndim for d in dims}
+        choices = [[Replicate(), Replicate()]]
+        choices += [[Shard(d), Shard(d)] for d in range(ndim) if d not in dims]
+        if linear is None or linear(op_schema):
+            choices.append([Partial(), Partial()])
+        return expand_to_full_mesh_op_strategy(x.mesh, op_schema, choices, input_index=1)
+
+    return strategy
+
+
+def _no_shard_to_partial(rule):
+    """DTensor's rule ``rule`` for a pointwise op without the choices that
+    would turn an input's shard into a partial sum; where none is left and
+    the inputs share a shape, each mesh dim on which an input is sharded
+    takes that shard for every input and the output (a partial input is
+    reduce-scattered onto it)."""
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSpec
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    def strategy(op_schema):
+        out = rule(op_schema)
+        args = [a for a in op_schema.args_schema if hasattr(a, "strategies")]
+        have = [a.strategies[0].output_spec for a in args]
+
+        def wants(spec):
+            return (spec.input_specs if spec.input_specs is not None
+                    else [spec.output_spec] * len(args))
+
+        def feasible(spec):
+            return not any(w.placements[m].is_partial() and h.placements[m].is_shard()
+                           for h, w in zip(have, wants(spec))
+                           for m in range(len(h.placements)))
+
+        kept = [s for s in out.strategies if feasible(s)]
+        if kept or len({tuple(h.shape) for h in have}) != 1:
+            out.strategies = kept or out.strategies
+            return out
+        pl = list(out.strategies[0].output_spec.placements)
+        for m in range(len(pl)):
+            shard = next((h.placements[m] for h in have if h.placements[m].is_shard()), None)
+            if shard is not None:
+                pl[m] = shard
+        mesh = have[0].mesh
+        ins = [DTensorSpec(mesh, tuple(pl), tensor_meta=h.tensor_meta) for h in have]
+        out.strategies = [OpSpec(output_specs=DTensorSpec(mesh, tuple(pl)), input_specs=ins,
+                                 redistribute_cost=[generate_redistribute_costs(a, i)
+                                                    for a, i in zip(args, ins)])]
+        return out
+
+    return strategy
+
+
+def _uneven_view_strategy(strict):
+    """DTensor's strict view strategy ``strict``, retried where it raises with
+    the fewest sharded mesh dims of the input made ``Replicate``."""
+    import itertools
+
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor._op_schema import OpSchema, OpSpec, OpStrategy
+    from torch.distributed.tensor._ops.utils import generate_redistribute_costs
+
+    def strategy(op_schema):
+        try:
+            return strict(op_schema)
+        except RuntimeError as e:
+            refused = e
+        src = op_schema.args_schema[0]
+        spec = src.strategies[0].output_spec
+        sharded = [i for i, p in enumerate(spec.placements) if not (p.is_replicate()
+                                                                   or p.is_partial())]
+        for k in range(1, len(sharded) + 1):
+            for drop in itertools.combinations(sharded, k):
+                want = DTensorSpec(spec.mesh, tuple(Replicate() if i in drop else p
+                                                    for i, p in enumerate(spec.placements)),
+                                   tensor_meta=spec.tensor_meta)
+                schema = OpSchema(op_schema.op, (OpStrategy([OpSpec(want)]),)
+                                  + tuple(op_schema.args_schema[1:]),
+                                  op_schema.kwargs_schema, schema_info=op_schema.schema_info)
+                try:
+                    out = strict(schema)
+                except RuntimeError:
+                    continue
+                for s in out.strategies:
+                    s.redistribute_cost = [generate_redistribute_costs(src, s.input_specs[0])]
+                return out
+        raise refused
+
+    return strategy
 
 
 def replicated(mesh) -> NamedSharding:

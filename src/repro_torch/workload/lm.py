@@ -105,10 +105,12 @@ class LMWorkload(GenerativeWorkload):
         """(B, V) logits -> (B, 1) tokens.  Greedy at temperature 0: the
         first maximum of each row, as ``jnp.argmax``.  Above it, Gumbel-max:
         the argmax of ``logits / T`` plus ``gumbel``, one (B, V) row of
-        :meth:`_gumbel`."""
+        :meth:`_gumbel`.  The vocab dim is named by its index: DTensor's
+        argmax over a sharded vocab mis-shapes its gather for ``-1``
+        where a rank holds one row."""
         if temperature <= 0.0:
-            return logits.argmax(-1)[:, None]
-        return (logits.float() / temperature + gumbel).argmax(-1)[:, None]
+            return logits.argmax(1)[:, None]
+        return (logits.float() / temperature + gumbel).argmax(1)[:, None]
 
     def run_stage(self, params, stage, state, gens, *, impl="auto", temperature=0.0, mesh=None):
         if mesh is not None:

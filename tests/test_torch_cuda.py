@@ -12,12 +12,17 @@ here are shared with ``tests/test_torch_kernels.py``, which holds the same
 plain versions against the JAX package on the CPU.  Tolerances are the
 repo's own (``tests/test_kernels.py``): 2e-5 in fp32, 2e-4 for emitted
 stats, 2e-2 in bf16; 3e-5 for temporal attention (its sweep's own,
-``tests/test_kernels.py``).
+``tests/test_kernels.py``).  The last tests run the mesh's coverage of
+``tests/test_torch_mesh.py`` on a CPU gloo world under this host's torch
+(``tests/torch_mesh_ranks.py``).
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
+import torch_mesh_ranks
 
 from repro_torch.kernels import build
 from repro_torch.kernels.conv2d import ref as t_conv_ref
@@ -1241,3 +1246,33 @@ def test_step_counter_counts_a_prefill_alike_on_meta_and_on_the_card(h100, arch)
     assert on_card.ops == on_meta.ops
     assert (hlo_analysis.memory_summary(on_card)["argument_size_in_bytes"]
             == hlo_analysis.memory_summary(on_meta)["argument_size_in_bytes"])
+
+
+# ---------------------------------------------------------------------------
+# the mesh under the torch installed beside the card
+# ---------------------------------------------------------------------------
+
+MESH_COVER = torch_mesh_ranks.cover_cases()
+
+
+@pytest.fixture(scope="module")
+def mesh_cover(tmp_path_factory):
+    """``tests/torch_mesh_ranks.py``'s coverage, alone, on a CPU gloo world of
+    4 ranks (2 x 2) and seeded models.  ``tests/test_torch_mesh.py`` runs it
+    under the CPU tests' torch; here it runs under the card's, whose DTensor
+    lacks rules the port registers (``parallel/sharding.py::
+    install_dtensor_rules``), so those rules run on every card test run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs the torch installed beside the card (run on the H100: pytest -m gpu)")
+    workdir = str(tmp_path_factory.mktemp("mesh_cover"))
+    torch.save({}, os.path.join(workdir, "inputs.pt"))
+    return torch_mesh_ranks.spawn(4, workdir, 600.0, only=("coverage",))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,route,n", MESH_COVER, ids=[f"{a}-{r}-{n}" for a, r, n in MESH_COVER])
+def test_mesh_serves_uneven_batches_under_the_card_torch(mesh_cover, arch, route, n):
+    """A stage batch of 1 or 3 on the 2 x 2 mesh gives each request the
+    output the mesh-free engine gives it (tokens equal, images within
+    fp32), on every rank."""
+    torch_mesh_ranks.check_coverage(mesh_cover, arch, route, n)

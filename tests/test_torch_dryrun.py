@@ -2,12 +2,13 @@
 roofline}``, ``repro_torch.launch.{dryrun,hillclimb,report}``) against the
 reference's (``repro.core``, ``repro.launch``).
 
-Three processes run side by side from one module fixture (a JAX host-device
+Four processes run side by side from one module fixture (a JAX host-device
 count and a process group are fixed for the life of a process):
 ``tests/torch_dryrun_worlds.py jax`` (the reference's dry-run lowering a
 tiny olmo-1b on an 8-device Auto-axes (4, 2) mesh), ``... torch`` (the port
-counting the same steps on an 8-rank fake world) and the port's dry-run CLI
-on a production cell (a 256-rank fake world).
+counting the same steps on an 8-rank fake world), ``... torch_ssm`` (the
+port's reduced sub-quadratic LMs' train steps on the same world) and the
+port's dry-run CLI on a production cell (a 256-rank fake world).
 
 Tolerances: every comparison is exact but one, the per-rank flops, which
 the port counts for matmul-class ops only while XLA's ``cost_analysis``
@@ -59,14 +60,13 @@ TUPLE_ENTRY = 8  # bytes of XLA's result-tuple index table a leaf
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The reference's and the port's tiny counts and the CLI's record, from
-    three processes run side by side."""
+    four processes run side by side."""
     tmp = tmp_path_factory.mktemp("dryrun")
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    out = {"jax": tmp / "jax.json", "torch": tmp / "torch.json", "cli": tmp / "cli.json"}
+    out = {k: tmp / f"{k}.json" for k in ("jax", "torch", "torch_ssm", "cli")}
     cmds = {
-        "jax": [sys.executable, str(WORLDS), "jax", str(out["jax"])],
-        "torch": [sys.executable, str(WORLDS), "torch", str(out["torch"])],
+        **{k: [sys.executable, str(WORLDS), k, str(out[k])] for k in ("jax", "torch", "torch_ssm")},
         "cli": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", CLI_CELL[0],
                 "--shape", CLI_CELL[1], "--single-pod-only", "--out", str(out["cli"])],
     }
@@ -75,7 +75,7 @@ def runs(tmp_path_factory):
     flags = re.sub(r"--xla_force_host_platform_device_count=\d+", "",
                    os.environ.get("XLA_FLAGS", "")).strip()
     envs = {"jax": dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8"),
-            "torch": env, "cli": dict(env, XLA_FLAGS=flags)}
+            "torch": env, "torch_ssm": env, "cli": dict(env, XLA_FLAGS=flags)}
     procs = {k: subprocess.Popen(c, cwd=ROOT, env=envs[k], stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True) for k, c in cmds.items()}
     logs = {}
@@ -300,6 +300,17 @@ def test_depth_fit_equals_the_direct_full_depth_count(runs, kind):
     for k in ("flops", "bytes", "coll"):
         assert d["fit"][k] == d["direct"][k], k
     assert (d["fit"]["n_a"], d["fit"]["n_b"], d["fit"]["n_full"]) == (1, 2, 4)
+
+
+@pytest.mark.parametrize("cell", [f"{arch}/{profile}" for arch in ("mamba2-780m",
+                                                                    "recurrentgemma-9b")
+                                  for profile in ("2d", "fsdp")])
+def test_sub_quadratic_train_steps_count_on_the_fake_world(runs, cell):
+    """The reduced SSM and RG-LRU train steps dispatch on the (4, 2) mesh:
+    softplus's backward has a sharding rule."""
+    rec = runs["torch_ssm"][cell]
+    assert "error" not in rec, rec.get("error")
+    assert rec["flops"] > 0 and sum(rec["collectives"].values()) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@ both fixed for the life of a process):
 
     python tests/torch_dryrun_worlds.py jax OUT.json    # the reference, 8 host devices
     python tests/torch_dryrun_worlds.py torch OUT.json  # the port, an 8-rank fake world
+    python tests/torch_dryrun_worlds.py torch_ssm OUT.json  # the port's SSM train steps
 
 Both count a tiny olmo-1b (2 layers, d 64, 4 heads, d_ff 128, vocab 256,
 fp32) at a 64-token, 8-sequence prefill, decode and train step on a (4, 2)
@@ -13,7 +14,9 @@ an Auto-axes mesh (jax 0.9's default Explicit axes refuse the reference's
 them; it also gives its pure helpers (microbatches, shallow depths, the
 hill-climb playbook, the long-context skip record).  The port also counts a
 mesh-free prefill, a column- then row-parallel MLP, and the depth fit
-against the direct count.  Each writes one JSON object to ``OUT``.
+against the direct count; ``torch_ssm`` counts the reduced sub-quadratic
+LMs' train steps under both profiles (softplus's backward on DTensor).
+Each writes one JSON object to ``OUT``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ SKIP_ARCH = "olmo-1b"  # a full-attention arch
 FREE = dict(batch=2, seq=16)  # the mesh-free prefill of the hand count
 MLP = dict(batch=8, seq=16, d=64, f=128)  # the column- then row-parallel MLP
 DEPTH = 4  # layers of the depth-fit check
+SSM_ARCHS = ("mamba2-780m", "recurrentgemma-9b")  # their reduced configs' train steps
 
 
 def reference() -> dict:
@@ -140,6 +144,7 @@ def port() -> dict:
                                                      remat="dots", microbatches=mb))
             out["depth"][kind] = dict(fit=fit, direct=direct)
 
+
         # one column- then row-parallel MLP: x batch-sharded, W1 (d, f) with f
         # on model, W2 (f, d) with f on model; the output pinned replicated
         B, S, d, f = MLP["batch"], MLP["seq"], MLP["d"], MLP["f"]
@@ -160,8 +165,38 @@ def port() -> dict:
     return out
 
 
+def port_ssm() -> dict:
+    """The port's reduced sub-quadratic LMs' train steps on the same fake
+    world and mesh, each profile: their counts, or the error."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_debug_mesh
+    from repro_torch.parallel import sharding as shlib
+
+    torch.set_num_threads(1)
+    out: dict = {}
+    with fake_world(8):
+        mesh = make_debug_mesh(4, 2, device="cuda")
+        for arch in SSM_ARCHS:
+            for profile in PROFILES:
+                shlib.set_profile(profile)
+                try:
+                    rec = dryrun._lower_for(reduced(get_config(arch)),
+                                            ShapeSpec("train", "train", SEQ, BATCH), mesh,
+                                            impl="blocked_jax", remat="dots", microbatches=1)
+                    cell = dict(flops=rec.flops, collectives=rec.collective_counts)
+                except Exception as e:  # noqa: BLE001 -- reported by the test
+                    cell = dict(error=repr(e))
+                out[f"{arch}/{profile}"] = cell
+        shlib.set_profile("2d")
+    return out
+
+
 if __name__ == "__main__":
     side, path = sys.argv[1], sys.argv[2]
-    result = reference() if side == "jax" else port()
+    result = {"jax": reference, "torch": port, "torch_ssm": port_ssm}[side]()
     with open(path, "w") as fh:
         json.dump(result, fh, default=float)
